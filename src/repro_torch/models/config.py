@@ -1,0 +1,219 @@
+"""Unified model configuration covering all assigned architecture families.
+
+One ``ModelConfig`` describes any member of the model pool M: dense decoders
+(llama/gemma/granite), MoE decoders (granite-moe, grok-1), SSM (mamba2),
+hybrid SSM+attention (zamba2), encoder-decoder audio backbones (whisper) and
+VLM decoders with a stubbed patch frontend (internvl2).
+
+Configs are frozen dataclasses, hashable and comparable. This is the port's
+own copy of ``repro.models.config``; the two must stay field-for-field
+equal so that a config means the same model in both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # -- identity ----------------------------------------------------------
+    name: str
+    family: str  # "dense" | "moe" | "ssm" | "hybrid" | "audio" | "vlm"
+
+    # -- core transformer dims --------------------------------------------
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # -- attention pattern --------------------------------------------------
+    attn_pattern: str = "global"  # "global" | "local_global"
+    local_window: int = 4096
+    # layers per pattern period; e.g. gemma2 = (1 local, 1 global) -> (1, 1),
+    # gemma3 = 5 local : 1 global -> (5, 1)
+    local_global_ratio: Tuple[int, int] = (1, 1)
+    attn_softcap: float = 0.0  # 0 disables (gemma2 uses 50.0)
+    final_softcap: float = 0.0  # final-logit softcapping (gemma2 uses 30.0)
+    qk_norm: bool = False  # gemma3-style per-head RMS norm of q/k
+
+    # -- MoE -----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0  # per-expert hidden dim; 0 -> d_ff
+    moe_capacity_factor: float = 1.25  # E/k = lossless (no token dropping)
+    moe_group_size: int = 512  # dispatch group size (tokens)
+
+    # -- SSM (mamba2 / SSD) --------------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    ssm_groups: int = 1
+
+    # -- hybrid (zamba2): shared attention block every N ssm layers ----------
+    hybrid_attn_every: int = 0
+
+    # -- encoder-decoder (whisper backbone; conv frontend is a stub) ---------
+    encoder_layers: int = 0
+    encoder_seq_len: int = 1500  # whisper audio frame count after conv stub
+
+    # -- vlm (internvl2): stubbed ViT patch-embedding prefix ------------------
+    num_patches: int = 0
+    vit_dim: int = 0  # stub patch-embedding dim; 0 -> d_model (no projection)
+
+    # -- family quirks --------------------------------------------------------
+    scale_embeddings: bool = False  # gemma: embeddings * sqrt(d_model)
+    post_norms: bool = False        # gemma2/3: extra norm after attn/mlp
+
+    # -- misc -----------------------------------------------------------------
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"        # activation/compute dtype
+    param_dtype: str = "bfloat16"  # parameter dtype
+    kv_cache_dtype: str = ""       # "" = dtype; "int8" = quantized KV cache
+    remat: str = "none"            # "none" | "full" — activation checkpointing
+    # Kept so a config round-trips between the two packages. The port does
+    # not read either: its causal prefill and global decode always go
+    # through the kernel wrappers, which launch the CUDA kernel on a CUDA
+    # tensor and run the plain version on a CPU tensor.
+    use_pallas: bool = False
+    pallas_interpret: bool = True
+    max_seq_len: int = 1 << 19
+
+    # ------------------------------------------------------------------ api --
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff else self.d_ff
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can serve 500k-token contexts without a full
+        quadratic attention pass (SSM, hybrid, or sliding-window local)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.attn_pattern == "local_global"
+
+    @property
+    def has_decode_step(self) -> bool:
+        """Encoder-only archs have no decode; all assigned archs decode."""
+        return True
+
+    # -- SSM derived dims -----------------------------------------------------
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        return self.ssm_d_inner + 2 * self.ssm_groups * self.ssm_state
+
+    @property
+    def ssm_in_proj_dim(self) -> int:
+        # z, x, B, C, dt
+        return (2 * self.ssm_d_inner + 2 * self.ssm_groups * self.ssm_state
+                + self.ssm_nheads)
+
+    # ------------------------------------------------------------------------
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """A small same-family config for CPU smoke tests."""
+        kw = dict(
+            name=self.name + "-smoke",
+            num_layers=min(self.num_layers, 2),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=32,
+            d_ff=256,
+            vocab_size=512,
+            local_window=16,
+            max_seq_len=256,
+        )
+        if self.is_moe:
+            # capacity E/k is lossless -> decode path exactly matches forward
+            kw.update(num_experts=4, num_experts_per_tok=2, moe_d_ff=64,
+                      moe_capacity_factor=2.0)
+        if self.family in ("ssm", "hybrid"):
+            kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+        if self.family == "hybrid":
+            kw.update(hybrid_attn_every=1, num_layers=2)
+        if self.is_encoder_decoder:
+            kw.update(encoder_layers=2, encoder_seq_len=16)
+        if self.family == "vlm":
+            kw.update(num_patches=4)
+        return self.replace(**kw)
+
+    def approx_params(self) -> int:
+        """Approximate parameter count N (for 6*N*D model-FLOPs estimates)."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        H, K, Hd = self.num_heads, self.num_kv_heads, self.resolved_head_dim
+        attn = D * H * Hd + 2 * D * K * Hd + H * Hd * D
+        if self.is_moe:
+            Fe = self.resolved_moe_d_ff
+            mlp = self.num_experts * 3 * D * Fe + D * self.num_experts
+        else:
+            mlp = 3 * D * F
+        ssm = 0
+        if self.family in ("ssm", "hybrid"):
+            ssm = (D * self.ssm_in_proj_dim
+                   + self.ssm_conv_width * self.ssm_conv_dim
+                   + self.ssm_d_inner * D + 3 * self.ssm_nheads
+                   + self.ssm_d_inner)
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            per_layer = ssm + 2 * D
+        elif self.family == "hybrid":
+            # shared attention block weights are counted once
+            return (L * (ssm + 2 * D) + attn + mlp + 4 * D + emb)
+        else:
+            per_layer = attn + mlp + 2 * D
+        total = L * per_layer + emb + D
+        if self.is_encoder_decoder:
+            # encoder layers + decoder cross-attention
+            total += self.encoder_layers * (attn + 3 * D * F + 2 * D)
+            total += L * (attn + D)  # cross-attn blocks
+        return int(total)
+
+    def active_params(self) -> int:
+        """Active parameters per token (MoE: only top-k experts count)."""
+        if not self.is_moe:
+            return self.approx_params()
+        D, L = self.d_model, self.num_layers
+        Fe = self.resolved_moe_d_ff
+        dense = self.approx_params() - L * self.num_experts * 3 * D * Fe
+        return int(dense + L * self.num_experts_per_tok * 3 * D * Fe)
+
+
+def layer_is_local(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Static per-layer attention pattern: True -> sliding-window local."""
+    if cfg.attn_pattern != "local_global":
+        return False
+    n_local, n_global = cfg.local_global_ratio
+    period = n_local + n_global
+    return (layer_idx % period) < n_local

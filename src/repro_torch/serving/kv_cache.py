@@ -1,0 +1,35 @@
+"""KV-cache sizing and accounting helpers (the dense global decoder's
+part of the JAX package's ``serving/kv_cache.py``; int8 quantisation
+arrives with the int8 slice)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import layout
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
+    """Decode-cache bytes of ``init_cache(cfg, batch, max_len)``."""
+    pattern, n_full, tail = layout(cfg)
+    bpe = 2 if cfg.dtype == "bfloat16" else 4
+    per_layer = 2 * batch * max_len * cfg.num_kv_heads * \
+        cfg.resolved_head_dim * bpe
+    return len(pattern * n_full + tail) * per_layer
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    bpe = 2 if cfg.param_dtype == "bfloat16" else 4
+    return cfg.approx_params() * bpe
+
+
+def measured_cache_bytes(cache) -> int:
+    """Bytes of every tensor in a cache (nested dicts and lists)."""
+    if isinstance(cache, torch.Tensor):
+        return cache.numel() * cache.element_size()
+    if isinstance(cache, dict):
+        return sum(measured_cache_bytes(v) for v in cache.values())
+    if isinstance(cache, (list, tuple)):
+        return sum(measured_cache_bytes(v) for v in cache)
+    return 0
