@@ -22,13 +22,11 @@ raises (and so exits non-zero) on failure:
 5. backend: ``TorchBackend`` answers 8 medec-shaped ``map`` requests.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops
-after phase 3 and prints neither.
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import subprocess
@@ -61,6 +59,15 @@ DECODE_CASES = [
     (2, 64, 4, 2, 48, 1, 0.0),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def tolerance(ref, dtype: str) -> float:
+    """The JAX tolerance; in bf16 scaled by max|ref| where that is below 1,
+    so that a case with small outputs (a long, nearly flat softmax) is not
+    passed by an absolute limit as large as its outputs."""
+    if dtype == "float32":
+        return TOL[dtype]
+    return TOL[dtype] * min(1.0, ref.float().abs().max().item())
 
 # serving shapes of llama3.2-1b: prefill of one prompt bucketed to 32/64/96
 # tokens, decode of 4 slots against a cache of 96 + 8 + 8 positions
@@ -141,10 +148,11 @@ def check_flash(case, gen):
     import torch
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    ok = math.isfinite(err) and err <= TOL[dtype]
+    tol = tolerance(ref, dtype)
+    ok = math.isfinite(err) and err <= tol
     log(f"  flash_attention b={b} s={s} h={h} kv={kv} hd={hd} "
         f"window={window} softcap={cap} {dtype}: max_abs_err={err:.3e} "
-        f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+        f"tol={tol:.1e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_attention disagrees: {case} err={err}")
     return err, (q, k, v)
@@ -163,9 +171,10 @@ def check_decode(case, dtype, gen):
     ref = decode_ref(q.reshape(b, kv, h // kv, hd), k, v, vlen, softcap=cap)
     torch.cuda.synchronize()
     err = (out.reshape(ref.shape).float() - ref.float()).abs().max().item()
-    ok = math.isfinite(err) and err <= TOL[dtype]
+    tol = tolerance(ref, dtype)
+    ok = math.isfinite(err) and err <= tol
     log(f"  flash_decode b={b} s={s} h={h} kv={kv} hd={hd} valid_len={vlen} "
-        f"softcap={cap} {dtype}: max_abs_err={err:.3e} tol={TOL[dtype]:.0e} "
+        f"softcap={cap} {dtype}: max_abs_err={err:.3e} tol={tol:.1e} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_decode disagrees: {case} {dtype} "
@@ -465,9 +474,9 @@ def phase_model():
         f"112): {decode_ms:.3f} ms (host enqueue {tick_host:.3f} ms); drain "
         f"throughput {tps:.1f} generated tokens/s")
     profile = _profile(prefill, tick)
-    del params, state, cache
+    del state, cache
     torch.cuda.empty_cache()
-    return launches, {"prefill_ms": prefill_ms, "decode_tick_ms": decode_ms,
+    return params, launches, {"prefill_ms": prefill_ms, "decode_tick_ms": decode_ms,
                       "prefill_host_ms": prefill_host,
                       "decode_tick_host_ms": tick_host,
                       "tokens_per_s": tps, "drain_ms": wall * 1e3, **profile}
@@ -535,8 +544,11 @@ def _profile(prefill, tick, ticks: int = 3):
 # ---------------------------------------------------------------------------
 
 
-def phase_backend():
+def phase_backend(params):
+    """``params``: phase 4's bf16 llama3.2-1b weights at published width,
+    seeded into the backend in place of its reduced config."""
     import numpy as np
+    from repro_torch.configs import get_config
     from repro_torch.data.tokenizer import HashWordTokenizer
     from repro_torch.engine.backend import TorchBackend
     from repro_torch.pipeline.protocols import OpRequest
@@ -555,7 +567,8 @@ def phase_backend():
     reqs = [OpRequest("map", op, doc={
         "id": i, "note": " ".join(rng.choice(vocab, 60 + 10 * i))})
         for i in range(8)]
-    be = TorchBackend(reduced=False)
+    be = TorchBackend()
+    be._params["llama3.2-1b"] = (get_config("llama3.2-1b"), params)
     _reset_counts()
     results = be.submit(reqs)
     launches = _counts()
@@ -575,11 +588,6 @@ def phase_backend():
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after the kernel checks (phase 3)")
-    args = parser.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -605,11 +613,10 @@ def main() -> int:
                 log(f"  [{name}] {line.strip()}")
 
     errs, times = phase_kernels()
-    if args.kernels_only:
-        return 0
-    launches, model_times = phase_model()
+    params, launches, model_times = phase_model()
     log(f"  model: {json.dumps(model_times)}")
-    phase_backend()
+    phase_backend(params)
+    del params
 
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/flash_attention/"

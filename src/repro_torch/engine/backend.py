@@ -53,9 +53,9 @@ class TorchBackend:
     """Operators run real model forward passes through the port, on
     ``device`` (default: the card).
 
-    ``reduced`` (default True, as ``JaxBackend`` always does) takes each
-    model's small smoke config; ``reduced=False`` serves the published
-    width. ``submit`` groups requests by model and drains them through a
+    Each model is its small smoke config, as in ``JaxBackend``; a caller
+    serves other weights by seeding ``_params`` (see ``_model``).
+    ``submit`` groups requests by model and drains them through a
     persistent fixed-slot continuous batcher.
     """
 
@@ -68,12 +68,10 @@ class TorchBackend:
 
     def __init__(self, seed: int = 0, max_new_tokens: int = 8,
                  decode_slots: Optional[int] = None,
-                 clock: Optional[Any] = None, *, device=None,
-                 reduced: bool = True):
+                 clock: Optional[Any] = None, *, device=None):
         self.device = resolve_device(device)
         self.seed = seed
         self.max_new_tokens = max_new_tokens
-        self.reduced = reduced
         if decode_slots is not None:
             self.DECODE_SLOTS = max(1, int(decode_slots))
         if clock is None:
@@ -98,7 +96,7 @@ class TorchBackend:
         """(cfg, params) of a model; filled only when absent, so a caller
         may seed ``_params`` with weights of its own."""
         if name not in self._params:
-            cfg = get_config(name, reduced=self.reduced)
+            cfg = get_config(name, reduced=True)
             params = api.init_params(self.seed, cfg, device=self.device)
             self._params[name] = (cfg, params)
         return self._params[name]

@@ -41,8 +41,7 @@ def test_apply_rope_matches_jax(shape):
                           shape[:2]).copy()
     out = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 500000.0)
     ref = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 500000.0)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6,
-                               rtol=0)
+    _close(out, ref)
 
 
 def test_mlp_matches_jax():
@@ -73,7 +72,7 @@ def test_embed_unembed_match_jax(final_softcap):
     x = rng.standard_normal((2, 9, tcfg.d_model)).astype(np.float32)
     u = L.unembed(torch.from_numpy(table), tcfg, torch.from_numpy(x))
     ju = JL.unembed({"tokens": jnp.asarray(table)}, jcfg, jnp.asarray(x))
-    np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=1e-5, rtol=0)
+    _close(u, ju)
 
 
 def test_softcap_matches_jax():
