@@ -6,20 +6,23 @@ raises (and so exits non-zero) on failure:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32
    off so fp32 means fp32;
-2. build: compile every CUDA kernel of the serving path from the sources in
-   the checkout (one ``nvcc`` per source, all at once);
+2. build: compile every CUDA kernel of the serving paths from the sources
+   in the checkout (one ``nvcc`` per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    over the CPU tests' case tables, the serving shapes and one long case,
-   and time it beside its plain version and one library call;
-4. model: the reduced llama on the card against the same weights on the
-   CPU (logits and greedy tokens); then llama3.2-1b at its published width
-   with seeded random weights: fp32 prefill and decode logits through the
-   kernels against the plain path, a bf16 continuous batcher draining 8
-   requests, with the launch counters proving every prefill and decode
-   layer went through the kernels, the prefill and decode-tick times (host
-   enqueue beside wall), and a ``torch.profiler`` window of where host and
-   card time go;
-5. backend: ``TorchBackend`` answers 8 medec-shaped ``map`` requests.
+   and time it beside its plain version and one library call (where one
+   PyTorch call computes the same function);
+4. models: each reduced model on the card against the same weights on
+   the CPU (logits and greedy tokens); then llama3.2-1b and mamba2-370m, each
+   at its published width with seeded random weights: fp32 prefill and
+   decode logits through the kernels against the plain path, a bf16
+   continuous batcher draining 8 requests, with the launch counters
+   (zeroed just before, read just after each drain) proving every prefill
+   and decode layer went through its kernels, the prefill and decode-tick
+   times (host enqueue beside wall), and a ``torch.profiler`` window of
+   where host and card time go;
+5. backend: ``TorchBackend`` answers 8 medec-shaped ``map`` requests on
+   each of the two models.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -74,6 +77,30 @@ def tolerance(ref, dtype: str) -> float:
 MAIN_PREFILL = dict(b=1, h=32, kv=8, hd=64)
 MAIN_PREFILL_S = (32, 64, 96)
 MAIN_DECODE = dict(b=4, s=112, h=32, kv=8, hd=64, vlen=100)
+
+# tests/test_kernels.py's SSD table, and the serving shapes of mamba2-370m:
+# one prompt bucketed to 32/64/96 tokens, chunk = min(256, S) = S
+SSD_CASES = [
+    # b, s, h, p, g, n, chunk
+    (2, 64, 4, 16, 1, 32, 16),
+    (1, 128, 8, 32, 2, 16, 32),
+    (2, 48, 4, 8, 4, 8, 16),
+    (1, 96, 2, 64, 1, 64, 24),
+]
+MAIN_SSD = dict(b=1, h=32, p=64, g=1, n=128)
+MAIN_SSD_S = (32, 64, 96)
+SSD_TOL = 5e-4       # tests/test_kernels.py
+SSD_TOL_REACH = 25.0  # outputs of that table reach 7.8-27 (CPU tests)
+
+
+def ssd_tolerance(*refs) -> float:
+    """The JAX tests' 5e-4 absolute, which they set on outputs of up to
+    about 25. An fp32 sum's rounding grows with the size of its terms, so
+    a case whose outputs are larger (the serving and long cases reach
+    41-89 on the card) is held to the same relative limit, 5e-4 / 25 =
+    2e-5 of max|ref|, not to a wider one."""
+    big = max(r.abs().max().item() for r in refs)
+    return SSD_TOL * max(1.0, big / SSD_TOL_REACH)
 
 
 def log(msg: str) -> None:
@@ -233,11 +260,129 @@ def time_decode(q, k, v, valid, vlen):
                 bound_by=by)
 
 
+def _ssd_inputs(gen, b, s, h, p, g, n, dt_scale=1.0):
+    """The JAX test's distributions: dt a softplus, A in (-e, -1), B and C
+    of std 0.5, D ones."""
+    import torch
+    import torch.nn.functional as F
+    x = _rand(gen, (b, s, h, p), "float32")
+    dt = F.softplus(_rand(gen, (b, s, h), "float32")) * dt_scale
+    A = -torch.exp(torch.rand((h,), generator=gen, device="cuda"))
+    Bm = _rand(gen, (b, s, g, n), "float32") * 0.5
+    Cm = _rand(gen, (b, s, g, n), "float32") * 0.5
+    D = torch.ones((h,), device="cuda")
+    return x, dt, A, Bm, Cm, D
+
+
+def _ssd_compare(what, y, hf, refs):
+    """Max error of (y, final state) against each (y, state, name) of
+    ``refs``; raises past ``ssd_tolerance``."""
+    import torch
+    torch.cuda.synchronize()
+    worst = 0.0
+    for ry, rh, name in refs:
+        err = max((y - ry).abs().max().item(), (hf - rh).abs().max().item())
+        tol = ssd_tolerance(ry, rh)
+        big = max(ry.abs().max().item(), rh.abs().max().item())
+        ok = math.isfinite(err) and err <= tol
+        log(f"  ssd_scan {what} vs {name}: max_abs_err={err:.3e} "
+            f"tol={tol:.1e} max|ref|={big:.1f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ssd_scan disagrees: {what} vs {name} "
+                                 f"err={err}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_ssd(case, gen, *, oracle=False, h0_std=0.0, dt_scale=1.0):
+    """The kernel against ``ssd_chunked`` in fp32, the same function in
+    fp64 (which says how much of a difference is the kernel's own
+    rounding), and the token-by-token oracle ``ssd_ref`` where ``oracle``.
+    With ``h0_std`` a nonzero initial state enters, and dt is scaled by
+    ``dt_scale`` so that it lasts through the chunk; the state is then
+    shown to move the output."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
+    b, s, h, p, g, n, chunk = case
+    ins = _ssd_inputs(gen, b, s, h, p, g, n, dt_scale)
+    h0 = _rand(gen, (b, h, p, n), "float32") * h0_std if h0_std else None
+    y, hf = ops.ssd(*ins, chunk, initial_state=h0)
+    yr, hr = ssd_chunked(*ins, chunk, h0)
+    y64, h64 = ssd_chunked(*(t.double() for t in ins), chunk,
+                           None if h0 is None else h0.double())
+    refs = [(yr, hr, "plain"), (y64, h64, "plain fp64")]
+    if oracle:
+        x, dt, A, Bm, Cm, D = ins
+        zero = torch.zeros((b, h, p, n), device="cuda")
+        yo, ho = ssd_ref(x.transpose(1, 2), dt.transpose(1, 2), A,
+                         Bm.transpose(1, 2), Cm.transpose(1, 2), D,
+                         zero if h0 is None else h0)
+        refs.append((yo.transpose(1, 2), ho, "oracle"))
+    what = (f"b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk}"
+            + (" h0" if h0 is not None else ""))
+    err = _ssd_compare(what, y, hf, refs)
+    if h0 is not None:
+        y0, _ = ops.ssd(*ins, chunk)
+        moved = (y - y0).abs().max().item()
+        log(f"  ssd_scan {what}: the initial state moves y by {moved:.3e}")
+        if not moved > 100 * ssd_tolerance(yr, hr):
+            raise AssertionError("ssd_scan: initial state has no effect")
+    return err, (ins, chunk)
+
+
+def check_ssd_split(gen):
+    """One pass == two halves with the state carried between them
+    (tests/test_kernels.py::test_ssd_initial_state_carries), all on the
+    kernel; the second half also against the plain version and the
+    oracle."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
+    b, s, h, p, g, n, chunk = 1, 64, 2, 8, 1, 16, 16
+    ins = _ssd_inputs(gen, b, s, h, p, g, n)
+    half = s // 2
+    first = [t[:, :half] if t.dim() > 1 else t for t in ins]
+    second = [t[:, half:] if t.dim() > 1 else t for t in ins]
+    y_full, h_full = ops.ssd(*ins, chunk)
+    _, h1 = ops.ssd(*first, chunk)
+    y2, h2 = ops.ssd(*second, chunk, initial_state=h1)
+    yr, hr = ssd_chunked(*second, chunk, h1)
+    x, dt, A, Bm, Cm, D = second
+    yo, ho = ssd_ref(x.transpose(1, 2), dt.transpose(1, 2), A,
+                     Bm.transpose(1, 2), Cm.transpose(1, 2), D, h1)
+    what = f"b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} split"
+    return _ssd_compare(what, y2, h2, [
+        (y_full[:, half:], h_full, "one pass"), (yr, hr, "plain"),
+        (yo.transpose(1, 2), ho, "oracle")])
+
+
+def time_ssd(ins, chunk):
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    x, dt, A, Bm, Cm, D = ins
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    ms = time_ms(lambda: ops.ssd(*ins, chunk))
+    plain = time_ms(lambda: ssd_chunked(*ins, chunk))
+    n_bytes = 4 * (sum(t.numel() for t in ins) + x.numel() + b * h * p * n)
+    nc = s // chunk
+    pairs = nc * chunk * (chunk + 1) / 2  # causal (i, j) pairs
+    macs = (b * g * pairs * n                 # C.B^T, once per group
+            + b * h * pairs * p               # its product with x
+            + b * h * (nc - 1) * chunk * n * p  # C.state^T (zero state
+                                                # before the first chunk)
+            + b * h * nc * chunk * p * n)     # state updates
+    bnd, by = bound_ms(n_bytes, 2.0 * macs, "float32")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                bound_by=by)
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"flash_attention": 0.0, "flash_decode": 0.0}
+    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "ssd_scan": 0.0}
 
     def note(name, err):
         errs[name] = max(errs[name], err)
@@ -271,13 +416,36 @@ def phase_kernels():
         note("flash_decode", check_decode((1, 8192, 32, 8, 64, 8000, 0.0),
                                           dtype, gen)[0])
 
-    log("  timing at the serving shapes (bf16; CUDA graph replay)")
+    log("  ssd_scan: the CPU tests' table against the plain version and "
+        "the oracle")
+    for case in SSD_CASES:
+        note("ssd_scan", check_ssd(case, gen, oracle=True)[0])
+    note("ssd_scan", check_ssd_split(gen))
+    m = MAIN_SSD
+    note("ssd_scan", check_ssd((m["b"], 96, m["h"], m["p"], m["g"], m["n"],
+                                96), gen, h0_std=1.0, dt_scale=0.05)[0])
+    for s in MAIN_SSD_S:
+        err, main_ssd = check_ssd(
+            (m["b"], s, m["h"], m["p"], m["g"], m["n"], s), gen)
+        note("ssd_scan", err)
+    log("  ssd_scan long cases")
+    note("ssd_scan", check_ssd((1, 4096, m["h"], m["p"], 1, m["n"], 256),
+                               gen)[0])
+    note("ssd_scan", check_ssd((1, 512, m["h"], m["p"], 2, m["n"], 256),
+                               gen)[0])
+
+    log("  timing at the serving shapes (bf16 attention, fp32 SSD; CUDA "
+        "graph replay)")
     t_flash = time_flash(*main_flash)
     t_decode = time_decode(*main_decode, MAIN_DECODE["vlen"])
+    t_ssd = time_ssd(*main_ssd)
     log(f"  flash_attention S=96: {json.dumps(t_flash)}")
     log(f"  flash_decode S=112 valid_len={MAIN_DECODE['vlen']}: "
         f"{json.dumps(t_decode)}")
-    return errs, {"flash_attention": t_flash, "flash_decode": t_decode}
+    log(f"  ssd_scan S=96 chunk 96 (no single PyTorch call computes an SSD "
+        f"scan: library_ms null): {json.dumps(t_ssd)}")
+    return errs, {"flash_attention": t_flash, "flash_decode": t_decode,
+                  "ssd_scan": t_ssd}
 
 
 # ---------------------------------------------------------------------------
@@ -286,8 +454,9 @@ def phase_kernels():
 
 
 class _PlainAttention:
-    """Routes the model's two kernel call sites to the plain versions, to
-    compare the kernel path with the plain path on the same card."""
+    """Routes the attention model's two kernel call sites to the plain
+    versions, to compare the kernel path with the plain path on the same
+    card."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -319,21 +488,58 @@ class _PlainAttention:
         return False
 
 
-def _reset_counts():
+class _PlainSSD:
+    """Routes the mamba block's kernel call site to ``ssd_chunked``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+        from repro_torch.models import ssm as S
+
+        class _Ops:
+            @staticmethod
+            def ssd(x, dt, A, Bm, Cm, D, chunk, initial_state=None):
+                return ssd_chunked(x, dt, A, Bm, Cm, D, chunk, initial_state)
+
+        self._S = S
+        self._saved = S.ssd_ops
+        S.ssd_ops = _Ops
+        return self
+
+    def __exit__(self, *exc):
+        self._S.ssd_ops = self._saved
+        return False
+
+
+# per model: the context that routes it to plain versions, and the kernel
+# launches a drain of n_req requests over `ticks` decode ticks must show
+MODELS = {
+    "llama3.2-1b": (_PlainAttention, lambda n_layers, n_req, ticks: {
+        "flash_attention": n_layers * n_req,
+        "flash_decode": n_layers * ticks, "ssd_scan": 0}),
+    "mamba2-370m": (_PlainSSD, lambda n_layers, n_req, ticks: {
+        "flash_attention": 0, "flash_decode": 0,
+        "ssd_scan": n_layers * n_req}),
+}
+
+
+def _kernel_ops():
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
-    fa.launches = 0
-    fd.launches = 0
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    return {"flash_attention": fa, "flash_decode": fd, "ssd_scan": ssd}
+
+
+def _reset_counts():
+    for mod in _kernel_ops().values():
+        mod.launches = 0
 
 
 def _counts():
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_decode import ops as fd
-    return {"flash_attention": fa.launches, "flash_decode": fd.launches}
+    return {name: mod.launches for name, mod in _kernel_ops().items()}
 
 
-def check_small_model():
-    """The reduced llama (fp32, seed 0) on the card, through the kernels,
+def check_small_model(arch):
+    """The reduced model (fp32, seed 0) on the card, through the kernels,
     against the same weights on the CPU, through the plain versions:
     logits within 1e-4, and the same greedy tokens from the batcher."""
     import numpy as np
@@ -342,7 +548,7 @@ def check_small_model():
     from repro_torch.models import api
     from repro_torch.serving.scheduler import ContinuousBatcher
 
-    cfg = get_config("llama3.2-1b", reduced=True).replace(
+    cfg = get_config(arch, reduced=True).replace(
         dtype="float32", param_dtype="float32")
     on_cpu = api.init_params(0, cfg, device="cpu")
     on_card = api.init_params(0, cfg, device="cpu").to("cuda")
@@ -360,28 +566,26 @@ def check_small_model():
         for p in prompts:
             b.submit(p, max_new_tokens=4)
         generated.append({r.uid: r.generated for r in b.run_until_drained()})
-    log(f"  reduced fp32 llama, card (kernels) vs CPU (plain): logits "
+    log(f"  reduced fp32 {arch}, card (kernels) vs CPU (plain): logits "
         f"max_abs_err={err:.3e} (atol 1e-4); greedy tokens "
         f"{'identical' if generated[0] == generated[1] else 'DIFFER'}")
     if not (err <= 1e-4 and generated[0] == generated[1]
             and len(generated[0]) == len(prompts)):
-        raise AssertionError(f"reduced model disagrees: err={err} "
+        raise AssertionError(f"reduced {arch} disagrees: err={err} "
                              f"{generated}")
 
 
-def phase_model():
+def _check_fp32(arch, full):
+    """fp32 at published width: prefill logits, every cache leaf (K/V, or
+    the SSD state and conv tail) and the next decode logits, through the
+    kernels against the plain path, atol 1e-3. Also the kernel launches of
+    one prefill and of one decode step."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.transformer import count_params
-    from repro_torch.serving.decode import make_serve_step
-    from repro_torch.serving.scheduler import ContinuousBatcher
 
-    log("phase 4: the model")
-    check_small_model()
-    log("  llama3.2-1b at published width, random weights (seed 0)")
-    full = get_config("llama3.2-1b")
+    plain, want = MODELS[arch]
     cfg32 = full.replace(dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
     params = api.init_params(0, cfg32)
@@ -390,25 +594,60 @@ def phase_model():
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(3, full.vocab_size, (2, 96))).cuda()
+    _reset_counts()
     logits_k, cache_k = api.prefill(params, cfg32, 112, tokens=toks)
-    with _PlainAttention():
+    torch.cuda.synchronize()
+    pre = _counts()
+    with plain():
         logits_p, cache_p = api.prefill(params, cfg32, 112, tokens=toks)
     nxt = torch.argmax(logits_k[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    _reset_counts()
     dec_k, _ = api.decode_step(params, cfg32, nxt, cache_k)
-    with _PlainAttention():
+    torch.cuda.synchronize()
+    dec = _counts()
+    with plain():
         dec_p, _ = api.decode_step(params, cfg32, nxt, cache_p)
     torch.cuda.synchronize()
     err_pre = (logits_k - logits_p).abs().max().item()
     err_dec = (dec_k - dec_p).abs().max().item()
+    err_cache, big = 0.0, 0.0
+    for lk, lp in zip(cache_k["layers"], cache_p["layers"]):
+        for key in lk:
+            err_cache = max(err_cache, (lk[key] - lp[key]).abs().max().item())
+            big = max(big, lp[key].abs().max().item())
     log(f"  fp32 prefill logits, kernels vs plain: max_abs_err={err_pre:.3e}; "
-        f"decode logits: max_abs_err={err_dec:.3e} (atol 1e-3)")
-    if not (err_pre <= 1e-3 and err_dec <= 1e-3):
-        raise AssertionError(f"full-width fp32 logits disagree: "
-                             f"{err_pre} {err_dec}")
-    del params, cache_k, cache_p, logits_k, logits_p
+        f"cache {sorted(cache_k['layers'][0])}: {err_cache:.3e} "
+        f"(max|ref| {big:.3e}); decode logits: {err_dec:.3e} (atol 1e-3)")
+    if not (err_pre <= 1e-3 and err_dec <= 1e-3 and err_cache <= 1e-3):
+        raise AssertionError(f"full-width fp32 {arch} disagrees: {err_pre} "
+                             f"{err_cache} {err_dec}")
+    n_layers = full.num_layers
+    want_pre, want_dec = want(n_layers, 1, 0), want(n_layers, 0, 1)
+    log(f"  launches: prefill {pre}, decode step {dec}")
+    if pre != want_pre or dec != want_dec:
+        raise AssertionError(f"launches {pre} {dec} != {want_pre} "
+                             f"{want_dec}")
+
+
+def phase_model(arch):
+    """``arch`` at its published width: the fp32 check, then a bf16
+    continuous batcher draining 8 requests with the launch counters
+    zeroed just before and read just after, per-unit times and a profile.
+    Returns (bf16 params, drain launches, times)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.decode import make_serve_step
+    from repro_torch.serving.scheduler import ContinuousBatcher
+
+    log(f"  {arch} at published width, random weights (seed 0)")
+    full = get_config(arch)
+    _check_fp32(arch, full)
     torch.cuda.empty_cache()
 
     params = api.init_params(0, full)  # bf16
+    rng = np.random.default_rng(0)
     n_req, new_tokens, slots, max_len = 8, 8, 4, 112
     lens = rng.integers(17, 97, n_req)
     lens[0] = 96
@@ -437,15 +676,13 @@ def phase_model():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
-    n_layers = full.num_layers
     log(f"  batcher: {len(done)} requests, {ticks} decode ticks, "
         f"launches {launches}, drain {wall * 1e3:.1f} ms")
     assert len(done) == n_req, done
     for r in done:
         assert len(r.generated) == new_tokens, r
         assert all(0 <= t < full.vocab_size for t in r.generated), r
-    want = {"flash_attention": n_layers * n_req,
-            "flash_decode": n_layers * ticks}
+    want = MODELS[arch][1](full.num_layers, n_req, ticks)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
 
@@ -476,10 +713,10 @@ def phase_model():
     profile = _profile(prefill, tick)
     del state, cache
     torch.cuda.empty_cache()
-    return params, launches, {"prefill_ms": prefill_ms, "decode_tick_ms": decode_ms,
-                      "prefill_host_ms": prefill_host,
-                      "decode_tick_host_ms": tick_host,
-                      "tokens_per_s": tps, "drain_ms": wall * 1e3, **profile}
+    return params, launches, {
+        "prefill_ms": prefill_ms, "decode_tick_ms": decode_ms,
+        "prefill_host_ms": prefill_host, "decode_tick_host_ms": tick_host,
+        "tokens_per_s": tps, "drain_ms": wall * 1e3, **profile}
 
 
 def _time_calls(fn, reps: int = 10):
@@ -544,8 +781,8 @@ def _profile(prefill, tick, ticks: int = 3):
 # ---------------------------------------------------------------------------
 
 
-def phase_backend(params):
-    """``params``: phase 4's bf16 llama3.2-1b weights at published width,
+def phase_backend(arch, params):
+    """``params``: phase 4's bf16 ``arch`` weights at published width,
     seeded into the backend in place of its reduced config."""
     import numpy as np
     from repro_torch.configs import get_config
@@ -553,8 +790,9 @@ def phase_backend(params):
     from repro_torch.engine.backend import TorchBackend
     from repro_torch.pipeline.protocols import OpRequest
 
-    log("phase 5: TorchBackend (llama3.2-1b, published width) answers 8 "
-        "medec-shaped map requests")
+    log(f"phase 5: TorchBackend ({arch}, published width) answers 8 "
+        f"medec-shaped map requests")
+    full = get_config(arch)
     rng = np.random.default_rng(1)
     vocab = ["patient", "dose", "mg", "daily", "history", "denies", "pain",
              "prescribed", "insulin", "was", "the", "with", "noted", "acute"]
@@ -563,26 +801,29 @@ def phase_backend(params):
                      "{{ input.note }}; identify the sentence and correct "
                      "it."),
           "output_schema": {"errors": "list[{flag, sentence}]"},
-          "model": "llama3.2-1b"}
+          "model": arch}
     reqs = [OpRequest("map", op, doc={
         "id": i, "note": " ".join(rng.choice(vocab, 60 + 10 * i))})
         for i in range(8)]
     be = TorchBackend()
-    be._params["llama3.2-1b"] = (get_config("llama3.2-1b"), params)
+    be._params[arch] = (full, params)
     _reset_counts()
     results = be.submit(reqs)
     launches = _counts()
-    tok = HashWordTokenizer(128256)
+    tok = HashWordTokenizer(full.vocab_size)
     for req, res in zip(reqs, results):
         assert res.error is None
         vals = res.value["errors"][0]["value"].split()
         assert len(vals) == be.max_new_tokens, res.value
+        assert all(0 <= int(t) < full.vocab_size for t in vals), vals
         want_in = min(len(tok.encode(be._prompt_for(req))),
                       be.MAX_PROMPT_TOKENS)
         assert (res.usage.calls, res.usage.in_tokens, res.usage.out_tokens) \
             == (1, want_in, be.max_new_tokens), res.usage
-    assert all(n > 0 for n in launches.values()), launches
-    cost = sum(be.usage_cost("llama3.2-1b", r.usage) for r in results)
+    # the model's kernels launched, the others not at all
+    used = MODELS[arch][1](full.num_layers, 1, 1)
+    assert all((launches[k] > 0) == (used[k] > 0) for k in used), launches
+    cost = sum(be.usage_cost(arch, r.usage) for r in results)
     log(f"  8 results ok, launches {launches}, cost ${cost:.3e}")
     be.close()
 
@@ -613,10 +854,17 @@ def main() -> int:
                 log(f"  [{name}] {line.strip()}")
 
     errs, times = phase_kernels()
-    params, launches, model_times = phase_model()
-    log(f"  model: {json.dumps(model_times)}")
-    phase_backend(params)
-    del params
+    log("phase 4: the models")
+    for arch in MODELS:
+        check_small_model(arch)
+    weights, launches = {}, {}
+    for arch in MODELS:
+        weights[arch], drain, model_times = phase_model(arch)
+        log(f"  {arch}: {json.dumps(model_times)}")
+        # each kernel's launches in the drain of the model whose path it is
+        launches.update({k: n for k, n in drain.items() if n})
+    for arch in MODELS:
+        phase_backend(arch, weights.pop(arch))
 
     replaces = {
         "flash_attention": ("src/repro_torch/kernels/flash_attention/"
@@ -625,6 +873,8 @@ def main() -> int:
         "flash_decode": ("src/repro_torch/kernels/flash_decode/"
                          "flash_decode.cu",
                          "src/repro/kernels/flash_decode/kernel.py:87"),
+        "ssd_scan": ("src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:90"),
     }
     kernels = []
     for name, (source, rep) in replaces.items():

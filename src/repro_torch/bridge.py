@@ -6,8 +6,10 @@ leaves must arrive as their raw ``uint16`` bits (``.view(np.uint16)``):
 numpy's bf16 dtype comes from ``ml_dtypes``, which ``torch.from_numpy``
 refuses and which the port does not import. The bridge views those bits as
 ``torch.bfloat16``. The per-slot stacked axis 0 of
-``tree["layers"]["slot0"]`` is unstacked into one ``Block`` per layer, and
-every weight keeps its ``(in, out)`` layout.
+``tree["layers"]["slot0"]`` is unstacked into one block per layer (a
+``Block`` or a ``MambaBlock``), and every weight keeps its ``(in, out)``
+layout. Norm scales and a mamba block's ``A_log``, ``D`` and ``dt_bias``
+are fp32 whatever ``param_dtype`` is, as in the JAX init.
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     model = transformer.init_params(0, cfg, device="cpu")
     slot = tree["layers"]["slot0"]
     if tree.get("tail"):
-        raise NotImplementedError("layer tails: not in the dense global "
-                                  "decoder")
+        raise NotImplementedError("layer tails: not in the ported "
+                                  "families")
     with torch.no_grad():
         _assign(model.embed.tokens, tree["embed"]["tokens"], pdt, dev)
         if "unembed" in tree["embed"]:
@@ -61,6 +63,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         _assign(model.final_norm.scale, tree["final_norm"]["scale"],
                 torch.float32, dev)
         for i, blk in enumerate(model.layers):
+            if isinstance(blk, transformer.MambaBlock):
+                _assign_mamba(blk, slot, i, pdt, dev)
+                continue
             _assign(blk.norm_attn.scale, slot["norm_attn"]["scale"][i],
                     torch.float32, dev)
             _assign(blk.norm_mlp.scale, slot["norm_mlp"]["scale"][i],
@@ -72,3 +77,19 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                 _assign(getattr(blk.mlp, name), slot["mlp"][name][i], pdt,
                         dev)
     return model
+
+
+_MAMBA_FP32 = ("A_log", "D", "dt_bias")
+_MAMBA_PARAM_DTYPE = ("in_proj", "conv_w", "conv_b", "out_proj")
+
+
+def _assign_mamba(blk: transformer.MambaBlock, slot: Dict[str, Any], i: int,
+                  pdt: torch.dtype, dev: torch.device) -> None:
+    _assign(blk.norm.scale, slot["norm"]["scale"][i], torch.float32, dev)
+    tree = slot["mamba"]
+    _assign(blk.mamba.norm.scale, tree["norm"]["scale"][i], torch.float32,
+            dev)
+    for name in _MAMBA_FP32:
+        _assign(getattr(blk.mamba, name), tree[name][i], torch.float32, dev)
+    for name in _MAMBA_PARAM_DTYPE:
+        _assign(getattr(blk.mamba, name), tree[name][i], pdt, dev)

@@ -2,8 +2,8 @@
 
 ``get_config(name)`` returns the full production config,
 ``get_config(name, reduced=True)`` the small same-family smoke config.
-Only llama3.2-1b is ported so far; the other architectures of the JAX
-registry arrive with their slices (see ROADMAP.md).
+Ported so far: llama3.2-1b and mamba2-370m; the other architectures of
+the JAX registry arrive with their slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,9 +11,10 @@ from __future__ import annotations
 from typing import Dict, List
 
 from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
+from repro_torch.configs.mamba2_370m import CONFIG as mamba2_370m
 from repro_torch.models.config import ModelConfig
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [llama32_1b]}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [llama32_1b, mamba2_370m]}
 
 
 def list_archs() -> List[str]:

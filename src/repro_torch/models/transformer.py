@@ -1,10 +1,14 @@
-"""Dense decoder-only transformer with global attention (llama3.2-1b).
+"""Decoder-only model: the dense decoder with global attention
+(llama3.2-1b) and the attention-free Mamba2 stack (mamba2-370m).
 
 The JAX package stacks layer params along axis 0 and scans over them; the
-port holds one ``Block`` per layer in a ``ModuleList`` and loops in Python.
-The decode cache mirrors that: ``cache["layers"][i]`` is layer i's
-``{"k", "v"}`` of shape ``(B, max_len, K, Hd)``, and ``cache["len"]`` is
-one int32 tensor on the model's device shared by the batch.
+port holds one block per layer in a ``ModuleList`` and loops in Python: a
+``Block`` (attention + MLP) for an ``attn_global`` layer, a ``MambaBlock``
+for a ``mamba`` layer. The decode cache mirrors that: ``cache["layers"][i]``
+is layer i's ``{"k", "v"}`` of shape ``(B, max_len, K, Hd)``, or its
+``{"ssm": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)}``, and
+``cache["len"]`` is one int32 tensor on the model's device shared by the
+batch.
 
 Other families and options raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -22,6 +26,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, Any]
@@ -30,9 +35,9 @@ Cache = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not port yet."""
     todo = []
-    if cfg.family != "dense":
-        todo.append(f"family {cfg.family!r} (MoE: item 7, SSM/hybrid: item "
-                    f"8, enc-dec/VLM: item 9)")
+    if cfg.family not in ("dense", "ssm"):
+        todo.append(f"family {cfg.family!r} (MoE: item 7, hybrid: zamba2's "
+                    f"shared attention block, item 8, enc-dec/VLM: item 9)")
     if cfg.attn_pattern != "global":
         todo.append("local_global attention (item 6)")
     if cfg.kv_cache_dtype == "int8":
@@ -56,10 +61,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def layout(cfg: ModelConfig) -> Tuple[List[str], int, List[str]]:
     """Returns (pattern, n_full_periods, tail_kinds), as the JAX package
-    does; for the dense global decoder, one ``attn_global`` slot per
-    layer and no tail."""
+    does; one slot per layer (``mamba`` for the SSM family, else
+    ``attn_global``) and no tail."""
     check_supported(cfg)
-    return ["attn_global"], cfg.num_layers, []
+    kind = "mamba" if cfg.family == "ssm" else "attn_global"
+    return [kind], cfg.num_layers, []
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    pattern, n_full, tail = layout(cfg)
+    return pattern * n_full + tail
 
 
 # --------------------------------------------------------------------------
@@ -68,6 +79,9 @@ def layout(cfg: ModelConfig) -> Tuple[List[str], int, List[str]]:
 
 
 class Block(nn.Module):
+    """Attention + MLP layer (``attn_global``); its decode cache is
+    ``{"k", "v"}`` of shape ``(B, max_len, K, Hd)``."""
+
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
         self.norm_attn = L.RMSNorm(cfg.d_model, gen.device)
@@ -76,16 +90,64 @@ class Block(nn.Module):
         self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff,
                          L.dtype_of(cfg.param_dtype))
 
+    @staticmethod
+    def empty_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    dev: torch.device) -> Cache:
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        dt = L.dtype_of(cfg.dtype)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
 
-class Transformer(nn.Module):
-    """Weights of the dense decoder: ``embed``, ``layers``, ``final_norm``."""
+    def full(self, cfg: ModelConfig, x, positions, max_len: int):
+        h, (k, v) = A.attn_prefill(self.attn, cfg,
+                                   self.norm_attn(x, cfg.norm_eps), positions)
+        x = x + h
+        x = x + self.mlp(self.norm_mlp(x, cfg.norm_eps))
+        return x, _seed_attn_cache(cfg, "attn_global", k, v, max_len)
+
+    def decode(self, cfg: ModelConfig, x, lc: Cache, cache_len):
+        h, new_lc = A.attn_decode_cached(self.attn, cfg,
+                                         self.norm_attn(x, cfg.norm_eps),
+                                         lc, cache_len)
+        x = x + h
+        return x + self.mlp(self.norm_mlp(x, cfg.norm_eps)), new_lc
+
+
+class MambaBlock(nn.Module):
+    """Mamba2 layer (``mamba``); its decode cache is
+    ``{"ssm": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)}``."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
-        check_supported(cfg)
+        self.norm = L.RMSNorm(cfg.d_model, gen.device)
+        self.mamba = S.Mamba(gen, cfg)
+
+    @staticmethod
+    def empty_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    dev: torch.device) -> Cache:
+        return S.init_ssm_state(cfg, batch, dev)._asdict()
+
+    def full(self, cfg: ModelConfig, x, positions, max_len: int):
+        h, state = S.mamba_prefill(self.mamba, cfg, self.norm(x, cfg.norm_eps))
+        return x + h, state._asdict()
+
+    def decode(self, cfg: ModelConfig, x, lc: Cache, cache_len):
+        h, state = S.mamba_decode(self.mamba, cfg, self.norm(x, cfg.norm_eps),
+                                  S.SSMState(**lc))
+        return x + h, state._asdict()
+
+
+_BLOCKS = {"attn_global": Block, "mamba": MambaBlock}
+
+
+class Transformer(nn.Module):
+    """Weights of the decoder: ``embed``, ``layers``, ``final_norm``."""
+
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig):
+        super().__init__()
         self.embed = L.Embedding(gen, cfg)
-        self.layers = nn.ModuleList(Block(gen, cfg)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_BLOCKS[kind](gen, cfg)
+                                    for kind in layer_kinds(cfg))
         self.final_norm = L.RMSNorm(cfg.d_model, gen.device)
 
 
@@ -117,20 +179,6 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def _apply_layer_full(p: Block, cfg: ModelConfig, x, positions):
-    h, kv = A.attn_prefill(p.attn, cfg, p.norm_attn(x, cfg.norm_eps),
-                           positions)
-    x = x + h
-    return x + p.mlp(p.norm_mlp(x, cfg.norm_eps)), kv
-
-
-def _apply_layer_decode(p: Block, cfg: ModelConfig, x, lc: Cache, cache_len):
-    h, new_lc = A.attn_decode_cached(p.attn, cfg, p.norm_attn(x, cfg.norm_eps),
-                                     lc, cache_len)
-    x = x + h
-    return x + p.mlp(p.norm_mlp(x, cfg.norm_eps)), new_lc
-
-
 # --------------------------------------------------------------------------
 # cache
 # --------------------------------------------------------------------------
@@ -138,15 +186,11 @@ def _apply_layer_decode(p: Block, cfg: ModelConfig, x, lc: Cache, cache_len):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Optional[Union[str, torch.device]] = None) -> Cache:
-    check_supported(cfg)
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    dt = L.dtype_of(cfg.dtype)
     return {
         "len": torch.zeros((), dtype=torch.int32, device=dev),
-        "layers": [{"k": torch.zeros(shape, dtype=dt, device=dev),
-                    "v": torch.zeros(shape, dtype=dt, device=dev)}
-                   for _ in range(cfg.num_layers)],
+        "layers": [_BLOCKS[kind].empty_cache(cfg, batch, max_len, dev)
+                   for kind in layer_kinds(cfg)],
     }
 
 
@@ -176,7 +220,7 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     for p in params.layers:
-        x, _ = _apply_layer_full(p, cfg, x, positions)
+        x, _ = p.full(cfg, x, positions, s)
     x = params.final_norm(x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
@@ -194,8 +238,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions(b, s, x.device)
     layers = []
     for p in params.layers:
-        x, (k, v) = _apply_layer_full(p, cfg, x, positions)
-        layers.append(_seed_attn_cache(cfg, "attn_global", k, v, max_len))
+        x, lc = p.full(cfg, x, positions, max_len)
+        layers.append(lc)
     x = params.final_norm(x, cfg.norm_eps)
     logits = L.unembed(params.embed.out_table, cfg, x[:, -1:, :])
     cache: Cache = {
@@ -208,14 +252,15 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache):
-    """One autoregressive step. Returns (logits (B,1,V), cache). The layer
-    caches are updated in place (see ``attention.attn_decode``); the
-    returned dict holds them with ``len`` advanced by one."""
+    """One autoregressive step. Returns (logits (B,1,V), cache). Attention
+    layer caches are updated in place (see ``attention.attn_decode``), a
+    mamba layer's state is replaced; the returned dict holds them with
+    ``len`` advanced by one."""
     x = _embed_inputs(params, cfg, token)
     cache_len = cache["len"]
     new_layers = []
     for p, lc in zip(params.layers, cache["layers"]):
-        x, nc = _apply_layer_decode(p, cfg, x, lc, cache_len)
+        x, nc = p.decode(cfg, x, lc, cache_len)
         new_layers.append(nc)
     x = params.final_norm(x, cfg.norm_eps)
     logits = L.unembed(params.embed.out_table, cfg, x)

@@ -1,22 +1,28 @@
-"""KV-cache sizing and accounting helpers (the dense global decoder's
-part of the JAX package's ``serving/kv_cache.py``; int8 quantisation
-arrives with the int8 slice)."""
+"""Decode-cache sizing and accounting helpers (the global-attention and
+mamba parts of the JAX package's ``serving/kv_cache.py``; int8
+quantisation arrives with the int8 slice)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layout
+from repro_torch.models.transformer import layer_kinds
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     """Decode-cache bytes of ``init_cache(cfg, batch, max_len)``."""
-    pattern, n_full, tail = layout(cfg)
     bpe = 2 if cfg.dtype == "bfloat16" else 4
-    per_layer = 2 * batch * max_len * cfg.num_kv_heads * \
-        cfg.resolved_head_dim * bpe
-    return len(pattern * n_full + tail) * per_layer
+    total = 0
+    for kind in layer_kinds(cfg):
+        if kind == "mamba":
+            total += batch * cfg.ssm_nheads * cfg.ssm_head_dim * \
+                cfg.ssm_state * 4
+            total += batch * (cfg.ssm_conv_width - 1) * cfg.ssm_conv_dim * bpe
+        else:
+            total += 2 * batch * max_len * cfg.num_kv_heads * \
+                cfg.resolved_head_dim * bpe
+    return total
 
 
 def param_bytes(cfg: ModelConfig) -> int:

@@ -1,6 +1,8 @@
 """The port's building blocks against the JAX package's, in fp32 on the
 CPU, on the same numpy inputs (atol 1e-6)."""
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,10 +104,11 @@ def test_inits_follow_jax_distributions():
 
 def test_configs_equal_jax():
     """The config copy keeps every field of the JAX dataclass, with the
-    same values for llama3.2-1b, full and reduced."""
-    for reduced in (False, True):
-        t = get_config("llama3.2-1b", reduced=reduced)
-        j = jax_get_config("llama3.2-1b", reduced=reduced)
+    same values for every ported arch, full and reduced."""
+    for arch, reduced in itertools.product(("llama3.2-1b", "mamba2-370m"),
+                                           (False, True)):
+        t = get_config(arch, reduced=reduced)
+        j = jax_get_config(arch, reduced=reduced)
         assert t.__dataclass_fields__.keys() == j.__dataclass_fields__.keys()
         for name in j.__dataclass_fields__:
             assert getattr(t, name) == getattr(j, name), name
