@@ -11,25 +11,31 @@ raises (and so exits non-zero) on failure:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    over the CPU tests' case tables, the serving shapes and one long case,
    and time it beside its plain version and one library call (where one
-   PyTorch call computes the same function);
+   PyTorch call computes the same function); the MoE router's tie order on
+   the card;
 4. models: each reduced model on the card against the same weights on
-   the CPU (logits and greedy tokens); then llama3.2-1b and mamba2-370m, each
-   at its published width with seeded random weights: fp32 prefill and
-   decode logits through the kernels against the plain path, a bf16
-   continuous batcher draining 8 requests, with the launch counters
-   (zeroed just before, read just after each drain) proving every prefill
-   and decode layer went through its kernels, the prefill and decode-tick
-   times (host enqueue beside wall), and a ``torch.profiler`` window of
-   where host and card time go;
+   the CPU (logits and greedy tokens); then llama3.2-1b, mamba2-370m and
+   granite-moe-1b-a400m, each at its published width with seeded random
+   weights: fp32 prefill and decode logits through the kernels against the
+   plain path (for the MoE model also each layer's expert FFN on the
+   inputs the kernel run dispatched, and the count of routing decisions
+   that differ between the two runs), a bf16 continuous batcher draining 8
+   requests, with the launch counters (zeroed just before, read just after
+   each drain) proving every prefill and decode layer went through its
+   kernels, the prefill and decode-tick times (host enqueue beside wall),
+   and a ``torch.profiler`` window of where host and card time go;
 5. backend: ``TorchBackend`` answers 8 medec-shaped ``map`` requests on
-   each of the two models.
+   each of the three models.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel
+(``launches`` is the sum over the models' drains, ``launches_by_model``
+each model's drain count); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -91,6 +97,21 @@ MAIN_SSD = dict(b=1, h=32, p=64, g=1, n=128)
 MAIN_SSD_S = (32, 64, 96)
 SSD_TOL = 5e-4       # tests/test_kernels.py
 SSD_TOL_REACH = 25.0  # outputs of that table reach 7.8-27 (CPU tests)
+
+
+# tests/test_kernels.py's expert-FFN table (fp32, atol 2e-5), and the
+# serving shapes of granite-moe-1b-a400m: one group of E=32 experts, D=1024,
+# F=512; capacity ceil(S*8*1.25/32) = 10/20/30 for the 32/64/96-token
+# prefill buckets and max(4, ...) = 4 for a decode tick of 4 slots
+MOE_CASES = [
+    # g, e, c, d, f
+    (2, 4, 16, 64, 128),
+    (1, 8, 100, 32, 300),
+    (1, 2, 8, 16, 48),
+]
+MAIN_MOE = dict(g=1, e=32, d=1024, f=512)
+MAIN_MOE_C = (4, 10, 20, 30)
+LONG_MOE = dict(g=8, e=32, c=160, d=1024, f=512)  # 4096 tokens, groups of 512
 
 
 def ssd_tolerance(*refs) -> float:
@@ -378,11 +399,108 @@ def time_ssd(ins, chunk):
                 bound_by=by)
 
 
+def _moe_inputs(gen, g, e, c, d, f, dtype, scale=None):
+    """x and the three expert weights. ``scale=None``: the model's scales
+    (a normalised x, fan-in-scaled weights); else the JAX test's (x * 0.5,
+    weights * ``scale``)."""
+    import torch
+    xs, ws = (1.0, (d ** -0.5, d ** -0.5, (e * f) ** -0.5)) if scale is None \
+        else (0.5, (scale,) * 3)
+    x = (_rand(gen, (g, e, c, d), "float32") * xs).to(getattr(torch, dtype))
+    w = [(_rand(gen, shape, "float32") * sc).to(getattr(torch, dtype))
+         for shape, sc in zip(((e, d, f), (e, d, f), (e, f, d)), ws)]
+    return (x, *w)
+
+
+def check_moe(case, dtype, gen, *, scale=None, empty_from=None):
+    """The kernel against ``expert_ffn_ref`` on the card; with
+    ``empty_from`` the capacity rows from that index on are zero, as
+    dropped and empty slots are, and must come out zero."""
+    import torch
+    from repro_torch.kernels.moe_ffn import ops
+    from repro_torch.kernels.moe_ffn.ref import expert_ffn_ref
+    g, e, c, d, f = case
+    ins = _moe_inputs(gen, g, e, c, d, f, dtype, scale)
+    if empty_from is not None:
+        ins[0][:, :, empty_from:] = 0
+    out = ops.expert_ffn(*ins)
+    ref = expert_ffn_ref(*ins)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = tolerance(ref, dtype)
+    ok = math.isfinite(err) and err <= tol and bool(torch.isfinite(
+        out.float()).all())
+    what = f"g={g} e={e} c={c} d={d} f={f} {dtype}"
+    if empty_from is not None:
+        zero = not out[:, :, empty_from:].any().item()
+        ok = ok and zero
+        what += f" rows {empty_from}.. zero: {'yes' if zero else 'NO'}"
+    log(f"  moe_ffn {what}: max_abs_err={err:.3e} tol={tol:.1e} "
+        f"max|ref|={ref.float().abs().max().item():.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"moe_ffn disagrees: {what} err={err}")
+    return err, ins
+
+
+def time_moe(ins):
+    from repro_torch.kernels.moe_ffn import ops
+    from repro_torch.kernels.moe_ffn.ref import expert_ffn_ref
+    x, wg, wu, wd = ins
+    g, e, c, d = x.shape
+    f = wg.shape[-1]
+    ms = time_ms(lambda: ops.expert_ffn(*ins))
+    plain = time_ms(lambda: expert_ffn_ref(*ins))
+    n_bytes = (2 * x.numel() * x.element_size()
+               + sum(w.numel() * w.element_size() for w in (wg, wu, wd)))
+    flops = 6.0 * g * e * c * d * f  # two (D,F) products and one (F,D)
+    dtype = str(x.dtype).replace("torch.", "")
+    bnd, by = bound_ms(n_bytes, flops, dtype)
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                bound_by=by,
+                fp32_cuda_core_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+
+
+def check_router_ties():
+    """``router_topk`` on the card: rows of all-equal probabilities (zero
+    rows) pick experts 0..k-1, as ``jax.lax.top_k`` does, and rows with
+    exact pairwise ties (an identity router) and random rows pick what the
+    same call picks on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    # the router alone matters here: experts one wide keep the init small
+    cfg = get_config("granite-moe-1b-a400m").replace(moe_d_ff=1,
+                                                     param_dtype="float32")
+    e, k, d = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((64, d), generator=gen)
+    x[:8] = 0
+    x[8:16, :e] = torch.randn((8, e // 2), generator=gen).repeat_interleave(
+        2, dim=1)
+    rnd = moe.MoE(torch.Generator().manual_seed(0), cfg)
+    eye = moe.MoE(torch.Generator().manual_seed(0), cfg)
+    eye.router.data = torch.eye(d, e)
+    picks = {}
+    for dev in ("cpu", "cuda"):
+        picks[dev] = [moe.router_topk(p.to(dev), cfg, x.to(dev))[0].cpu()
+                      for p in (eye, rnd)]
+    ok = (bool((picks["cuda"][0][:8] == torch.arange(k)).all())
+          and torch.equal(picks["cuda"][0], picks["cpu"][0])
+          and torch.equal(picks["cuda"][1], picks["cpu"][1]))
+    log(f"  router_topk on the card: zero rows pick experts "
+        f"{picks['cuda'][0][0].tolist()}, tied and random rows as on the "
+        f"CPU: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"router tie order differs: {picks}")
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "ssd_scan": 0.0}
+    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "ssd_scan": 0.0,
+            "moe_ffn": 0.0}
 
     def note(name, err):
         errs[name] = max(errs[name], err)
@@ -434,8 +552,32 @@ def phase_kernels():
     note("ssd_scan", check_ssd((1, 512, m["h"], m["p"], 2, m["n"], 256),
                                gen)[0])
 
-    log("  timing at the serving shapes (bf16 attention, fp32 SSD; CUDA "
-        "graph replay)")
+    log("  moe_ffn: the CPU tests' table (fp32), an odd width, the serving "
+        "shapes (fp32 and bf16), empty rows, and the long case")
+    for case in MOE_CASES + [(1, 3, 7, 33, 40)]:
+        note("moe_ffn", check_moe(case, "float32", gen, scale=0.1)[0])
+    m = MAIN_MOE
+    main_moe = {}
+    for dtype in ("float32", "bfloat16"):
+        for c in MAIN_MOE_C:
+            err, ins = check_moe((m["g"], m["e"], c, m["d"], m["f"]), dtype,
+                                 gen)
+            note("moe_ffn", err)
+            if dtype == "bfloat16":
+                main_moe[c] = ins
+    note("moe_ffn", check_moe((m["g"], m["e"], 30, m["d"], m["f"]),
+                              "bfloat16", gen, empty_from=17)[0])
+    note("moe_ffn", check_moe((1, 4, 16, 64, 128), "float32", gen,
+                              scale=0.1, empty_from=5)[0])
+    lm = LONG_MOE
+    long_case = (lm["g"], lm["e"], lm["c"], lm["d"], lm["f"])
+    note("moe_ffn", check_moe(long_case, "float32", gen)[0])
+    err, long_moe = check_moe(long_case, "bfloat16", gen)
+    note("moe_ffn", err)
+    check_router_ties()
+
+    log("  timing at the serving shapes (bf16 attention and expert FFN, "
+        "fp32 SSD; CUDA graph replay)")
     t_flash = time_flash(*main_flash)
     t_decode = time_decode(*main_decode, MAIN_DECODE["vlen"])
     t_ssd = time_ssd(*main_ssd)
@@ -444,8 +586,18 @@ def phase_kernels():
         f"{json.dumps(t_decode)}")
     log(f"  ssd_scan S=96 chunk 96 (no single PyTorch call computes an SSD "
         f"scan: library_ms null): {json.dumps(t_ssd)}")
+    log("  moe_ffn (no single PyTorch call computes a per-expert SwiGLU: "
+        "library_ms null)")
+    t_moe = {}
+    for c, ins in main_moe.items():
+        t_moe[c] = time_moe(ins)
+        log(f"  moe_ffn G=1 E=32 C={c} D=1024 F=512 bf16: "
+            f"{json.dumps(t_moe[c])}")
+    t_long = time_moe(long_moe)
+    log(f"  moe_ffn long G=8 E=32 C=160 D=1024 F=512 bf16: "
+        f"{json.dumps(t_long)}")
     return errs, {"flash_attention": t_flash, "flash_decode": t_decode,
-                  "ssd_scan": t_ssd}
+                  "ssd_scan": t_ssd, "moe_ffn": t_moe[4]}
 
 
 # ---------------------------------------------------------------------------
@@ -510,23 +662,91 @@ class _PlainSSD:
         return False
 
 
+class _PlainMoE:
+    """Routes the MoE layer's kernel call site to ``expert_ffn_ref``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.moe_ffn.ref import expert_ffn_ref
+        from repro_torch.models import moe as M
+
+        class _Ops:
+            @staticmethod
+            def expert_ffn(x, w_gate, w_up, w_down):
+                return expert_ffn_ref(x, w_gate, w_up, w_down)
+
+        self._M = M
+        self._saved = M.moe_ops
+        M.moe_ops = _Ops
+        return self
+
+    def __exit__(self, *exc):
+        self._M.moe_ops = self._saved
+        return False
+
+
+@contextlib.contextmanager
+def _plain_attention_moe():
+    with _PlainAttention(), _PlainMoE():
+        yield
+
+
+class _RecordMoE:
+    """Records, per MoE layer call, the routing (``assign``) and the expert
+    FFN's inputs and output, calling through to whatever the call sites
+    route to."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self._M = M
+        self._saved = (M.moe_ops, M.router_topk)
+        self.assign, self.ffn = [], []
+        ops, topk = self._saved
+        rec = self
+
+        class _Ops:
+            @staticmethod
+            def expert_ffn(*args):
+                out = ops.expert_ffn(*args)
+                rec.ffn.append((args, out))
+                return out
+
+        def router_topk(params, cfg, x):
+            out = topk(params, cfg, x)
+            rec.assign.append(out[0])
+            return out
+
+        M.moe_ops, M.router_topk = _Ops, router_topk
+        return self
+
+    def __exit__(self, *exc):
+        self._M.moe_ops, self._M.router_topk = self._saved
+        return False
+
+
 # per model: the context that routes it to plain versions, and the kernel
 # launches a drain of n_req requests over `ticks` decode ticks must show
 MODELS = {
     "llama3.2-1b": (_PlainAttention, lambda n_layers, n_req, ticks: {
         "flash_attention": n_layers * n_req,
-        "flash_decode": n_layers * ticks, "ssd_scan": 0}),
+        "flash_decode": n_layers * ticks, "ssd_scan": 0, "moe_ffn": 0}),
     "mamba2-370m": (_PlainSSD, lambda n_layers, n_req, ticks: {
         "flash_attention": 0, "flash_decode": 0,
-        "ssd_scan": n_layers * n_req}),
+        "ssd_scan": n_layers * n_req, "moe_ffn": 0}),
+    "granite-moe-1b-a400m": (
+        _plain_attention_moe, lambda n_layers, n_req, ticks: {
+            "flash_attention": n_layers * n_req,
+            "flash_decode": n_layers * ticks, "ssd_scan": 0,
+            "moe_ffn": n_layers * (n_req + ticks)}),
 }
 
 
 def _kernel_ops():
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.moe_ffn import ops as moe
     from repro_torch.kernels.ssd_scan import ops as ssd
-    return {"flash_attention": fa, "flash_decode": fd, "ssd_scan": ssd}
+    return {"flash_attention": fa, "flash_decode": fd, "ssd_scan": ssd,
+            "moe_ffn": moe}
 
 
 def _reset_counts():
@@ -579,9 +799,17 @@ def _check_fp32(arch, full):
     """fp32 at published width: prefill logits, every cache leaf (K/V, or
     the SSD state and conv tail) and the next decode logits, through the
     kernels against the plain path, atol 1e-3. Also the kernel launches of
-    one prefill and of one decode step."""
+    one prefill and of one decode step.
+
+    For an MoE model a difference of ~1e-6 between kernel and plain
+    version can flip a near-tied top-k choice, and every later layer then
+    differs. So each MoE layer's expert FFN is held against the plain
+    version on exactly the inputs the kernel run dispatched, at the fp32
+    limit; the routing decisions of the two runs are counted; and the
+    logits are compared only where none differ."""
     import numpy as np
     import torch
+    from repro_torch.kernels.moe_ffn.ref import expert_ffn_ref
     from repro_torch.models import api
     from repro_torch.models.transformer import count_params
 
@@ -594,33 +822,65 @@ def _check_fp32(arch, full):
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(3, full.vocab_size, (2, 96))).cuda()
-    _reset_counts()
-    logits_k, cache_k = api.prefill(params, cfg32, 112, tokens=toks)
-    torch.cuda.synchronize()
-    pre = _counts()
-    with plain():
+    with _RecordMoE() as rec_k:
+        _reset_counts()
+        logits_k, cache_k = api.prefill(params, cfg32, 112, tokens=toks)
+        torch.cuda.synchronize()
+        pre = _counts()
+        nxt = torch.argmax(logits_k[:, -1], dim=-1,
+                           keepdim=True).to(torch.int32)
+        _reset_counts()
+        dec_k, _ = api.decode_step(params, cfg32, nxt, cache_k)
+        torch.cuda.synchronize()
+        dec = _counts()
+    with plain(), _RecordMoE() as rec_p:
         logits_p, cache_p = api.prefill(params, cfg32, 112, tokens=toks)
-    nxt = torch.argmax(logits_k[:, -1], dim=-1, keepdim=True).to(torch.int32)
-    _reset_counts()
-    dec_k, _ = api.decode_step(params, cfg32, nxt, cache_k)
-    torch.cuda.synchronize()
-    dec = _counts()
-    with plain():
         dec_p, _ = api.decode_step(params, cfg32, nxt, cache_p)
     torch.cuda.synchronize()
-    err_pre = (logits_k - logits_p).abs().max().item()
-    err_dec = (dec_k - dec_p).abs().max().item()
-    err_cache, big = 0.0, 0.0
-    for lk, lp in zip(cache_k["layers"], cache_p["layers"]):
-        for key in lk:
-            err_cache = max(err_cache, (lk[key] - lp[key]).abs().max().item())
-            big = max(big, lp[key].abs().max().item())
-    log(f"  fp32 prefill logits, kernels vs plain: max_abs_err={err_pre:.3e}; "
-        f"cache {sorted(cache_k['layers'][0])}: {err_cache:.3e} "
-        f"(max|ref| {big:.3e}); decode logits: {err_dec:.3e} (atol 1e-3)")
-    if not (err_pre <= 1e-3 and err_dec <= 1e-3 and err_cache <= 1e-3):
-        raise AssertionError(f"full-width fp32 {arch} disagrees: {err_pre} "
-                             f"{err_cache} {err_dec}")
+
+    if rec_k.ffn:
+        worst, big = 0.0, 0.0
+        for args, out in rec_k.ffn:
+            ref = expert_ffn_ref(*args)
+            err = (out - ref).abs().max().item()
+            tol = tolerance(ref, "float32")
+            if not (math.isfinite(err) and err <= tol):
+                raise AssertionError(f"moe_ffn disagrees in the model: "
+                                     f"input {tuple(args[0].shape)} "
+                                     f"err={err}")
+            worst = max(worst, err)
+            big = max(big, ref.abs().max().item())
+        shapes = sorted({tuple(a[0].shape) for a, _ in rec_k.ffn})
+        log(f"  fp32 expert FFN per MoE layer, kernel vs plain on the inputs "
+            f"the kernel run dispatched ({len(rec_k.ffn)} calls, x "
+            f"{shapes}): max_abs_err={worst:.3e} (tol 2e-5, max|ref| "
+            f"{big:.3e})")
+        n_diff = sum(int((a != b).sum())
+                     for a, b in zip(rec_k.assign, rec_p.assign))
+        n_all = sum(a.numel() for a in rec_k.assign)
+        log(f"  routing: {n_diff} of {n_all} (layer, token, choice) "
+            f"decisions differ between the kernel and the plain run")
+        if n_diff:
+            log(f"  {arch}: routing differs, so the fp32 logits and caches "
+                f"of the two runs are not compared")
+    else:
+        n_diff = 0
+    if not n_diff:
+        err_pre = (logits_k - logits_p).abs().max().item()
+        err_dec = (dec_k - dec_p).abs().max().item()
+        err_cache, big = 0.0, 0.0
+        for lk, lp in zip(cache_k["layers"], cache_p["layers"]):
+            for key in lk:
+                err_cache = max(err_cache,
+                                (lk[key] - lp[key]).abs().max().item())
+                big = max(big, lp[key].abs().max().item())
+        log(f"  fp32 prefill logits, kernels vs plain: "
+            f"max_abs_err={err_pre:.3e}; cache "
+            f"{sorted(cache_k['layers'][0])}: {err_cache:.3e} (max|ref| "
+            f"{big:.3e}); decode logits: {err_dec:.3e} (atol 1e-3)")
+        if not (err_pre <= 1e-3 and err_dec <= 1e-3 and err_cache <= 1e-3):
+            raise AssertionError(f"full-width fp32 {arch} disagrees: "
+                                 f"{err_pre} {err_cache} {err_dec}")
     n_layers = full.num_layers
     want_pre, want_dec = want(n_layers, 1, 0), want(n_layers, 0, 1)
     log(f"  launches: prefill {pre}, decode step {dec}")
@@ -861,8 +1121,10 @@ def main() -> int:
     for arch in MODELS:
         weights[arch], drain, model_times = phase_model(arch)
         log(f"  {arch}: {json.dumps(model_times)}")
-        # each kernel's launches in the drain of the model whose path it is
-        launches.update({k: n for k, n in drain.items() if n})
+        # each kernel's launches in the drain of each model whose path it is
+        for k, n in drain.items():
+            if n:
+                launches.setdefault(k, {})[arch] = n
     for arch in MODELS:
         phase_backend(arch, weights.pop(arch))
 
@@ -875,13 +1137,16 @@ def main() -> int:
                          "src/repro/kernels/flash_decode/kernel.py:87"),
         "ssd_scan": ("src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:90"),
+        "moe_ffn": ("src/repro_torch/kernels/moe_ffn/moe_ffn.cu",
+                    "src/repro/kernels/moe_ffn/kernel.py:56"),
     }
     kernels = []
     for name, (source, rep) in replaces.items():
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": sum(launches[name].values()),
+            "launches_by_model": launches[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

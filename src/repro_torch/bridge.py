@@ -8,8 +8,8 @@ refuses and which the port does not import. The bridge views those bits as
 ``torch.bfloat16``. The per-slot stacked axis 0 of
 ``tree["layers"]["slot0"]`` is unstacked into one block per layer (a
 ``Block`` or a ``MambaBlock``), and every weight keeps its ``(in, out)``
-layout. Norm scales and a mamba block's ``A_log``, ``D`` and ``dt_bias``
-are fp32 whatever ``param_dtype`` is, as in the JAX init.
+layout. Norm scales, an MoE router and a mamba block's ``A_log``, ``D``
+and ``dt_bias`` are fp32 whatever ``param_dtype`` is, as in the JAX init.
 """
 
 from __future__ import annotations
@@ -73,9 +73,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             for name in ("wq", "wk", "wv", "wo"):
                 _assign(getattr(blk.attn, name), slot["attn"][name][i], pdt,
                         dev)
-            for name in ("w_gate", "w_up", "w_down"):
-                _assign(getattr(blk.mlp, name), slot["mlp"][name][i], pdt,
+            tree_ffn = slot["moe"] if cfg.is_moe else slot["mlp"]
+            if cfg.is_moe:
+                _assign(blk.ffn.router, tree_ffn["router"][i], torch.float32,
                         dev)
+            for name in ("w_gate", "w_up", "w_down"):
+                _assign(getattr(blk.ffn, name), tree_ffn[name][i], pdt, dev)
     return model
 
 

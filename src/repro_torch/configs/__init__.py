@@ -2,19 +2,22 @@
 
 ``get_config(name)`` returns the full production config,
 ``get_config(name, reduced=True)`` the small same-family smoke config.
-Ported so far: llama3.2-1b and mamba2-370m; the other architectures of
-the JAX registry arrive with their slices (see ROADMAP.md).
+Ported so far: llama3.2-1b, mamba2-370m and granite-moe-1b-a400m; the
+other architectures of the JAX registry arrive with their slices (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+from repro_torch.configs.granite_moe_1b import CONFIG as granite_moe_1b
 from repro_torch.configs.llama32_1b import CONFIG as llama32_1b
 from repro_torch.configs.mamba2_370m import CONFIG as mamba2_370m
 from repro_torch.models.config import ModelConfig
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [llama32_1b, mamba2_370m]}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in [llama32_1b, mamba2_370m, granite_moe_1b]}
 
 
 def list_archs() -> List[str]:

@@ -1,0 +1,21 @@
+"""granite-moe-1b-a400m — 24L d_model=1024 16H (GQA kv=8) d_ff=512
+vocab=49155, MoE 32 experts top-8. [hf:ibm-granite/granite-3.0-1b-a400m-base]
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=512,
+    moe_d_ff=512,
+    vocab_size=49155,
+    num_experts=32,
+    num_experts_per_tok=8,
+    tie_embeddings=True,
+    rope_theta=10000.0,
+)

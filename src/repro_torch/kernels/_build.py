@@ -22,7 +22,7 @@ from typing import Dict, List, Sequence
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[2] / "build" / "repro_torch"
-KERNELS = ("flash_attention", "flash_decode", "ssd_scan")
+KERNELS = ("flash_attention", "flash_decode", "ssd_scan", "moe_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -81,9 +81,10 @@ class ModelConfig:
     kv_cache_dtype: str = ""       # "" = dtype; "int8" = quantized KV cache
     remat: str = "none"            # "none" | "full" — activation checkpointing
     # Kept so a config round-trips between the two packages. The port does
-    # not read either: its causal prefill, global decode and mamba prefill
-    # always go through the kernel wrappers, which launch the CUDA kernel
-    # on a CUDA tensor and run the plain version on a CPU tensor.
+    # not read either: its causal prefill, global decode, mamba prefill and
+    # MoE expert FFN always go through the kernel wrappers, which launch
+    # the CUDA kernel on a CUDA tensor and run the plain version on a CPU
+    # tensor.
     use_pallas: bool = False
     pallas_interpret: bool = True
     max_seq_len: int = 1 << 19

@@ -1,11 +1,13 @@
 """Decoder-only model: the dense decoder with global attention
-(llama3.2-1b) and the attention-free Mamba2 stack (mamba2-370m).
+(llama3.2-1b), the same decoder with an MoE layer in place of the MLP
+(granite-moe-1b-a400m) and the attention-free Mamba2 stack (mamba2-370m).
 
 The JAX package stacks layer params along axis 0 and scans over them; the
 port holds one block per layer in a ``ModuleList`` and loops in Python: a
-``Block`` (attention + MLP) for an ``attn_global`` layer, a ``MambaBlock``
-for a ``mamba`` layer. The decode cache mirrors that: ``cache["layers"][i]``
-is layer i's ``{"k", "v"}`` of shape ``(B, max_len, K, Hd)``, or its
+``Block`` (attention + MLP or MoE) for an ``attn_global`` layer, a
+``MambaBlock`` for a ``mamba`` layer. The decode cache mirrors that:
+``cache["layers"][i]`` is layer i's ``{"k", "v"}`` of shape
+``(B, max_len, K, Hd)``, or its
 ``{"ssm": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)}``, and
 ``cache["len"]`` is one int32 tensor on the model's device shared by the
 batch.
@@ -26,6 +28,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
@@ -35,9 +38,9 @@ Cache = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not port yet."""
     todo = []
-    if cfg.family not in ("dense", "ssm"):
-        todo.append(f"family {cfg.family!r} (MoE: item 7, hybrid: zamba2's "
-                    f"shared attention block, item 8, enc-dec/VLM: item 9)")
+    if cfg.family not in ("dense", "ssm", "moe"):
+        todo.append(f"family {cfg.family!r} (hybrid: zamba2's shared "
+                    f"attention block, item 8, enc-dec/VLM: item 9)")
     if cfg.attn_pattern != "global":
         todo.append("local_global attention (item 6)")
     if cfg.kv_cache_dtype == "int8":
@@ -78,17 +81,29 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 # --------------------------------------------------------------------------
 
 
+class _DenseFFN(L.MLP):
+    """The MLP with the MoE layer's call: ``(cfg, x) -> (output, None)``."""
+
+    def forward(self, cfg: ModelConfig, x: torch.Tensor):
+        return super().forward(x), None
+
+
 class Block(nn.Module):
-    """Attention + MLP layer (``attn_global``); its decode cache is
-    ``{"k", "v"}`` of shape ``(B, max_len, K, Hd)``."""
+    """Attention + feed-forward layer (``attn_global``); the feed-forward
+    sublayer ``ffn`` is an ``MoE`` when ``cfg.is_moe``, else the MLP. Its
+    decode cache is ``{"k", "v"}`` of shape ``(B, max_len, K, Hd)``.
+    ``full`` returns (x, layer cache, MoE aux loss or None), as
+    ``MambaBlock.full`` does; ``decode`` drops the aux loss, as the JAX
+    decode does."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
         self.norm_attn = L.RMSNorm(cfg.d_model, gen.device)
         self.attn = A.Attention(gen, cfg)
         self.norm_mlp = L.RMSNorm(cfg.d_model, gen.device)
-        self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff,
-                         L.dtype_of(cfg.param_dtype))
+        self.ffn = (M.MoE(gen, cfg) if cfg.is_moe else
+                    _DenseFFN(gen, cfg.d_model, cfg.d_ff,
+                              L.dtype_of(cfg.param_dtype)))
 
     @staticmethod
     def empty_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -102,15 +117,16 @@ class Block(nn.Module):
         h, (k, v) = A.attn_prefill(self.attn, cfg,
                                    self.norm_attn(x, cfg.norm_eps), positions)
         x = x + h
-        x = x + self.mlp(self.norm_mlp(x, cfg.norm_eps))
-        return x, _seed_attn_cache(cfg, "attn_global", k, v, max_len)
+        h, aux = self.ffn(cfg, self.norm_mlp(x, cfg.norm_eps))
+        return (x + h, _seed_attn_cache(cfg, "attn_global", k, v, max_len),
+                aux)
 
     def decode(self, cfg: ModelConfig, x, lc: Cache, cache_len):
         h, new_lc = A.attn_decode_cached(self.attn, cfg,
                                          self.norm_attn(x, cfg.norm_eps),
                                          lc, cache_len)
         x = x + h
-        return x + self.mlp(self.norm_mlp(x, cfg.norm_eps)), new_lc
+        return x + self.ffn(cfg, self.norm_mlp(x, cfg.norm_eps))[0], new_lc
 
 
 class MambaBlock(nn.Module):
@@ -129,7 +145,7 @@ class MambaBlock(nn.Module):
 
     def full(self, cfg: ModelConfig, x, positions, max_len: int):
         h, state = S.mamba_prefill(self.mamba, cfg, self.norm(x, cfg.norm_eps))
-        return x + h, state._asdict()
+        return x + h, state._asdict(), None
 
     def decode(self, cfg: ModelConfig, x, lc: Cache, cache_len):
         h, state = S.mamba_decode(self.mamba, cfg, self.norm(x, cfg.norm_eps),
@@ -215,14 +231,17 @@ def _seed_attn_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
 @torch.no_grad()
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
             return_hidden: bool = False):
-    """Full-sequence forward. Returns (logits_or_hidden, aux=0)."""
+    """Full-sequence forward. Returns (logits_or_hidden, aux): the sum of
+    the MoE layers' load-balancing losses (zero without MoE layers)."""
     x = _embed_inputs(params, cfg, tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    for p in params.layers:
-        x, _ = p.full(cfg, x, positions, s)
-    x = params.final_norm(x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params.layers:
+        x, _, a = p.full(cfg, x, positions, s)
+        if a is not None:
+            aux = aux + a
+    x = params.final_norm(x, cfg.norm_eps)
     if return_hidden:
         return x, aux
     return L.unembed(params.embed.out_table, cfg, x), aux
@@ -238,7 +257,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions(b, s, x.device)
     layers = []
     for p in params.layers:
-        x, lc = p.full(cfg, x, positions, max_len)
+        x, lc, _ = p.full(cfg, x, positions, max_len)
         layers.append(lc)
     x = params.final_norm(x, cfg.norm_eps)
     logits = L.unembed(params.embed.out_table, cfg, x[:, -1:, :])

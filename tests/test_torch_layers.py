@@ -105,8 +105,9 @@ def test_inits_follow_jax_distributions():
 def test_configs_equal_jax():
     """The config copy keeps every field of the JAX dataclass, with the
     same values for every ported arch, full and reduced."""
-    for arch, reduced in itertools.product(("llama3.2-1b", "mamba2-370m"),
-                                           (False, True)):
+    for arch, reduced in itertools.product(
+            ("llama3.2-1b", "mamba2-370m", "granite-moe-1b-a400m"),
+            (False, True)):
         t = get_config(arch, reduced=reduced)
         j = jax_get_config(arch, reduced=reduced)
         assert t.__dataclass_fields__.keys() == j.__dataclass_fields__.keys()

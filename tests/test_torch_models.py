@@ -122,7 +122,7 @@ def test_bf16_bridge_is_bit_exact():
                   (blk.norm_mlp.scale, slot["norm_mlp"]["scale"][i])]
         pairs += [(getattr(blk.attn, n), slot["attn"][n][i])
                   for n in ("wq", "wk", "wv", "wo")]
-        pairs += [(getattr(blk.mlp, n), slot["mlp"][n][i])
+        pairs += [(getattr(blk.ffn, n), slot["mlp"][n][i])
                   for n in ("w_gate", "w_up", "w_down")]
     n_leaves = len(jax.tree_util.tree_leaves(jparams["layers"])) \
         * tcfg.num_layers + 2
@@ -185,7 +185,7 @@ def test_unported_configs_raise():
     cfg = get_config(ARCH, reduced=True)
     for kw in ({"attn_pattern": "local_global"}, {"kv_cache_dtype": "int8"},
                {"qk_norm": True}, {"post_norms": True},
-               {"family": "moe"}):
+               {"family": "hybrid"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.init_params(0, cfg.replace(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
