@@ -9,10 +9,12 @@ raises (and so exits non-zero) on failure:
 2. build: compile every CUDA kernel of the serving paths from the sources
    in the checkout (one ``nvcc`` per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   over the CPU tests' case tables, the serving shapes and one long case,
-   and time it beside its plain version and one library call (where one
-   PyTorch call computes the same function); the MoE router's tie order on
-   the card;
+   over the CPU tests' case tables, the serving shapes and the long cases
+   (for the attention kernels also the coming slices' shapes, in fp32 and
+   bf16), and time it beside its plain version and one library call (where
+   one PyTorch call computes the same function); the attention kernels
+   also with L2 flushed and at their long shapes; the MoE router's tie
+   order on the card;
 4. models: each reduced model on the card against the same weights on
    the CPU (logits and greedy tokens); then llama3.2-1b, mamba2-370m and
    granite-moe-1b-a400m, each at its published width with seeded random
@@ -29,7 +31,8 @@ raises (and so exits non-zero) on failure:
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` is the sum over the models' drains, ``launches_by_model``
-each model's drain count); the last line is ``{"ok": true, "device":
+each model's drain count; the attention kernels add ``l2_flushed_ms`` and
+their ``long`` case); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -67,6 +70,33 @@ DECODE_CASES = [
     (3, 96, 16, 1, 80, 77, 0.0),
     (2, 64, 4, 2, 48, 1, 0.0),
 ]
+# the coming slices' attention shapes, each in fp32 and bf16: granite-34b's
+# G = 48, a G of 7, zamba2's Hd = 80 with G = 1, gemma2's Hd = 256 with
+# window 4096 and softcap 50 (S past the window), gemma3's Hd = 128 with
+# window 1024 (S past it), and head dims that are not multiples of 16: 40,
+# and an odd 33 whose rows take the narrow copies
+FLASH_PORT_CASES = [
+    # b, s, h, kv, hd, window, softcap
+    (1, 80, 48, 1, 128, 0, 0.0),
+    (2, 50, 14, 2, 64, 0, 0.0),
+    (1, 96, 32, 32, 80, 0, 0.0),
+    (1, 4608, 16, 8, 256, 4096, 50.0),
+    (1, 2048, 32, 16, 128, 1024, 0.0),
+    (2, 70, 8, 2, 40, 0, 0.0),
+    (1, 40, 6, 3, 33, 5, 0.0),
+]
+DECODE_PORT_CASES = [
+    # b, s, h, kv, hd, valid_len, softcap
+    (2, 300, 48, 1, 128, 257, 0.0),
+    (3, 100, 14, 2, 64, 64, 0.0),
+    (2, 200, 32, 32, 80, 150, 0.0),
+    (1, 4608, 16, 8, 256, 4500, 50.0),
+    (2, 2048, 32, 16, 128, 2000, 0.0),
+    (2, 130, 8, 2, 40, 97, 0.0),
+    (1, 75, 6, 3, 33, 70, 0.0),
+    (2, 1024, 8, 2, 64, 40, 0.0),  # most splits start past valid_len
+    (1, 300, 96, 1, 128, 280, 0.0),  # G = 96: two bf16 row tiles, three fp32
+]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -83,6 +113,10 @@ def tolerance(ref, dtype: str) -> float:
 MAIN_PREFILL = dict(b=1, h=32, kv=8, hd=64)
 MAIN_PREFILL_S = (32, 64, 96)
 MAIN_DECODE = dict(b=4, s=112, h=32, kv=8, hd=64, vlen=100)
+# the long cases, timed: a 2048-token prompt and an 8192-position cache
+LONG_PREFILL = (1, 2048, 32, 8, 64, 0, 0.0)
+LONG_DECODE = (1, 8192, 32, 8, 64, 8000, 0.0)
+L2_FLUSH_BYTES = 64 * 2 ** 20  # past the H100's 50 MB L2
 
 # tests/test_kernels.py's SSD table, and the serving shapes of mamba2-370m:
 # one prompt bucketed to 32/64/96 tokens, chunk = min(256, S) = S
@@ -166,6 +200,20 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_flushed_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` call with L2 flushed before it: each
+    call follows a write of a 64 MB buffer in the same graph, and the
+    write's own time, measured alone, is subtracted."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def flushed():
+        flush.zero_()
+        fn()
+
+    return time_ms(flushed, iters) - time_ms(flush.zero_, iters)
+
+
 def bound_ms(n_bytes: float, flops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -231,7 +279,6 @@ def check_decode(case, dtype, gen):
 
 
 def time_flash(q, k, v):
-    import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -250,8 +297,11 @@ def time_flash(q, k, v):
     dtype = str(q.dtype).replace("torch.", "")
     bnd, by = bound_ms(n_bytes, flops, dtype)
     cuda_core = flops / PEAK_FLOPS["float32"] * 1e3
+    flushed = time_flushed_ms(lambda: ops.flash_attention(q, k, v,
+                                                         causal=True))
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                bound_by=by, fp32_cuda_core_bound_ms=cuda_core)
+                bound_by=by, l2_flushed_ms=flushed,
+                fp32_cuda_core_bound_ms=cuda_core)
 
 
 def time_decode(q, k, v, valid, vlen):
@@ -277,8 +327,10 @@ def time_decode(q, k, v, valid, vlen):
     flops = 4.0 * b * h * hd * vlen
     dtype = str(q.dtype).replace("torch.", "")
     bnd, by = bound_ms(n_bytes, flops, dtype)
+    flushed = time_flushed_ms(lambda: ops.flash_decode(q, k, v, valid))
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                bound_by=by)
+                bound_by=by, l2_flushed_ms=flushed,
+                n_split=ops.num_splits(b, kv, s))
 
 
 def _ssd_inputs(gen, b, s, h, p, g, n, dt_scale=1.0):
@@ -495,21 +547,21 @@ def check_router_ties():
         raise AssertionError(f"router tie order differs: {picks}")
 
 
-def phase_kernels():
-    import torch
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "ssd_scan": 0.0,
-            "moe_ffn": 0.0}
-
-    def note(name, err):
-        errs[name] = max(errs[name], err)
-
-    log("phase 3: kernels vs plain versions on the card")
+def phase_attention(gen, note):
+    """The two attention kernels against their plain versions over the CPU
+    tests' tables, the coming slices' shapes, the serving shapes and the
+    long cases; then their times. Returns (serving times, long times)."""
+    log("  attention: the CPU tests' tables, the coming slices' shapes (fp32 "
+        "and bf16), the serving shapes and the long cases")
     for case in FLASH_CASES:
         note("flash_attention", check_flash(case, gen)[0])
     for case in DECODE_CASES:
         for dtype in ("float32", "bfloat16"):
+            note("flash_decode", check_decode(case, dtype, gen)[0])
+    for dtype in ("float32", "bfloat16"):
+        for case in FLASH_PORT_CASES:
+            note("flash_attention", check_flash((*case, dtype), gen)[0])
+        for case in DECODE_PORT_CASES:
             note("flash_decode", check_decode(case, dtype, gen)[0])
     main_flash = None
     for dtype in ("float32", "bfloat16"):
@@ -526,13 +578,42 @@ def phase_kernels():
             dtype, gen)
         note("flash_decode", err)
     log("  long cases")
-    note("flash_attention",
-         check_flash((1, 2048, 32, 8, 64, 0, 0.0, "bfloat16"), gen)[0])
-    note("flash_attention",
-         check_flash((1, 2048, 32, 8, 64, 0, 0.0, "float32"), gen)[0])
-    for dtype in ("float32", "bfloat16"):
-        note("flash_decode", check_decode((1, 8192, 32, 8, 64, 8000, 0.0),
-                                          dtype, gen)[0])
+    note("flash_attention", check_flash((*LONG_PREFILL, "float32"),
+                                        gen)[0])
+    err, long_flash = check_flash((*LONG_PREFILL, "bfloat16"), gen)
+    note("flash_attention", err)
+    note("flash_decode", check_decode(LONG_DECODE, "float32", gen)[0])
+    err, long_decode = check_decode(LONG_DECODE, "bfloat16", gen)
+    note("flash_decode", err)
+
+    log("  attention timing, bf16, CUDA graph replay (l2_flushed_ms: each "
+        "call after a 64 MB write, whose own time is subtracted)")
+    times = {"flash_attention": time_flash(*main_flash),
+             "flash_decode": time_decode(*main_decode, MAIN_DECODE["vlen"])}
+    long_times = {"flash_attention": time_flash(*long_flash),
+                  "flash_decode": time_decode(*long_decode, LONG_DECODE[5])}
+    log(f"  flash_attention S=96: {json.dumps(times['flash_attention'])}")
+    log(f"  flash_decode S=112 valid_len={MAIN_DECODE['vlen']}: "
+        f"{json.dumps(times['flash_decode'])}")
+    log(f"  flash_attention long B=1 S=2048 H=32 K=8 Hd=64: "
+        f"{json.dumps(long_times['flash_attention'])}")
+    log(f"  flash_decode long B=1 S=8192 valid_len={LONG_DECODE[5]} H=32 K=8 "
+        f"Hd=64: {json.dumps(long_times['flash_decode'])}")
+    return times, long_times
+
+
+def phase_kernels():
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    errs = {"flash_attention": 0.0, "flash_decode": 0.0, "ssd_scan": 0.0,
+            "moe_ffn": 0.0}
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    log("phase 3: kernels vs plain versions on the card")
+    t_attn, t_attn_long = phase_attention(gen, note)
 
     log("  ssd_scan: the CPU tests' table against the plain version and "
         "the oracle")
@@ -576,14 +657,9 @@ def phase_kernels():
     note("moe_ffn", err)
     check_router_ties()
 
-    log("  timing at the serving shapes (bf16 attention and expert FFN, "
-        "fp32 SSD; CUDA graph replay)")
-    t_flash = time_flash(*main_flash)
-    t_decode = time_decode(*main_decode, MAIN_DECODE["vlen"])
+    log("  timing at the serving shapes (bf16 expert FFN, fp32 SSD; CUDA "
+        "graph replay)")
     t_ssd = time_ssd(*main_ssd)
-    log(f"  flash_attention S=96: {json.dumps(t_flash)}")
-    log(f"  flash_decode S=112 valid_len={MAIN_DECODE['vlen']}: "
-        f"{json.dumps(t_decode)}")
     log(f"  ssd_scan S=96 chunk 96 (no single PyTorch call computes an SSD "
         f"scan: library_ms null): {json.dumps(t_ssd)}")
     log("  moe_ffn (no single PyTorch call computes a per-expert SwiGLU: "
@@ -596,8 +672,8 @@ def phase_kernels():
     t_long = time_moe(long_moe)
     log(f"  moe_ffn long G=8 E=32 C=160 D=1024 F=512 bf16: "
         f"{json.dumps(t_long)}")
-    return errs, {"flash_attention": t_flash, "flash_decode": t_decode,
-                  "ssd_scan": t_ssd, "moe_ffn": t_moe[4]}
+    return errs, {**t_attn, "ssd_scan": t_ssd, "moe_ffn": t_moe[4]}, \
+        t_attn_long
 
 
 # ---------------------------------------------------------------------------
@@ -1031,6 +1107,11 @@ def _profile(prefill, tick, ticks: int = 3):
     log("    top kernels (device ms, launches):")
     for e in sorted(kernels, key=lambda e: -dev_us(e))[:10]:
         log(f"      {dev_us(e) / 1e3:9.3f} {e.count:6d}  {e.key[:90]}")
+    log("    the port's kernels (device ms, launches):")
+    for e in kernels:
+        if any(f"::{name}_" in e.key for name in _kernel_ops()) \
+                or "::combine_splits" in e.key:
+            log(f"      {dev_us(e) / 1e3:9.3f} {e.count:6d}  {e.key[:90]}")
     return {"profile_window_ms": window * 1e3,
             "profile_busy_ms": busy_us / 1e3,
             "profile_kernel_launches": sum(e.count for e in kernels)}
@@ -1113,7 +1194,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
 
-    errs, times = phase_kernels()
+    errs, times, long_times = phase_kernels()
     log("phase 4: the models")
     for arch in MODELS:
         check_small_model(arch)
@@ -1150,6 +1231,12 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if name in long_times:  # the attention kernels: flushed and long
+            lt = long_times[name]
+            kernels[-1].update(l2_flushed_ms=t["l2_flushed_ms"], long={
+                key: lt[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "l2_flushed_ms")})
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

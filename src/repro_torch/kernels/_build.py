@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,10 +44,28 @@ def _source(name: str) -> Path:
     return KERNEL_DIR / name / f"{name}.cu"
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def inputs(name: str) -> List[Path]:
+    """The kernel's source and every local header it includes, directly or
+    through another header (``#include "..."``), in a fixed order."""
+    seen, todo = [], [_source(name)]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            todo.append(path.parent / inc)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Content-hashed path of the kernel's shared library."""
+    """Content-hashed path of the kernel's shared library: the flags, the
+    source and every header it includes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [_source(name), *sorted(KERNEL_DIR.glob("*.cuh"))]:
+    for path in inputs(name):
         h.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

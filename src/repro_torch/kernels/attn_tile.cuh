@@ -1,18 +1,38 @@
 // Shared pieces of the two attention kernels (flash_attention.cu,
-// flash_decode.cu): one warp owns up to kRowsPerWarp query rows, a block of
-// kWarps warps shares one tile of kTile keys staged in shared memory, and
-// each row keeps its online-softmax state (m, l, acc) in fp32 registers.
+// flash_decode.cu).
 //
-// Work split inside a warp, per tile of 32 keys:
-//   scores  lane j scores key j against every row of the warp (a loop over
-//           the head dim; K is staged with a row stride of HD+1 floats so the
-//           32 lanes hit 32 different banks);
-//   softmax a warp max and a warp sum over the 32 lanes give the tile's row
-//           max and row sum;
-//   P.V     lane owns head dims lane, lane+32, ... (HPL of them, HPL =
-//           ceil(HD/32)), so no lane holds a whole 128-wide accumulator; the
-//           probability of key j is broadcast by a shuffle.
-// Arithmetic is fp32 FMA on the CUDA cores.
+// Row mapping, both kernels and both dtypes: for one (batch, kv head) the
+// query rows are flattened as (position t, group head g), row r = t * G + g.
+// A block or a warp takes a fixed number of consecutive rows whatever G is:
+// with G = 4 a 64-row tile is 16 positions, with G = 48 one position's heads
+// fill 48 of its rows. In the (B, S, H, Hd) layout the G heads of one
+// position are contiguous, so a row's address is base + r / G * H * Hd +
+// (r % G) * Hd.
+//
+// Two tile routines fold a staged tile of keys into a warp's rows:
+// - TcWarp (bf16): a warp owns 16 or 32 rows. Q.K^T and P.V run on the
+//   tensor cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators),
+//   with K and V brought from shared memory by ldmatrix (.trans for V) and
+//   Q held in registers (QRegs) or read from shared memory (QSmem). The
+//   online softmax runs on the accumulator fragments, where a row lives in
+//   4 lanes, so its max and sum take 2 shuffles. P is rounded to bf16 in
+//   registers and is the A operand of P.V as it stands: it never goes
+//   through shared memory. The head dim is zero-padded up to a multiple of
+//   the mma depth, 16.
+// - FmaRows (fp32): TF32 keeps about three decimal digits and would miss the
+//   2e-5 the fp32 tests hold, so fp32 stays on the CUDA cores. Lane j scores
+//   key j against the warp's rows (float4 reads, with rows padded so that 8
+//   lanes reading 16 bytes each hit 8 different bank groups), a warp max and
+//   a warp sum give a row's tile max and sum, and lane owns head dims lane,
+//   lane + 32, ... for P.V, the probability of key j broadcast by a shuffle.
+//
+// Staging, both routines: K/V tiles are copied into shared memory with
+// cp.async into two stages. The copy of tile i + 1 is issued before the
+// wait for tile i, so two tiles are in flight while a block waits, and tile
+// i + 1 lands while tile i is computed. (Three and four stages measured no
+// faster on the H100.) A copy is 16 bytes where the key
+// row's byte width and the pointers allow it, else 8 or 4; a bf16 row of odd
+// width is copied one element at a time by plain loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,23 +41,27 @@
 
 namespace attn {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kMaxRows = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kTile = 32;                        // keys per staged tile
 constexpr int kMaxHeadDim = 256;
 constexpr unsigned kFull = 0xffffffffu;
 // same constant as the JAX package: a fully masked row stays finite
 constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
+__device__ __forceinline__ void store_f(bf16* p, float x) {
   *p = __float2bfloat16(x);
+}
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ bf16 zero_of<bf16>() {
+  return __float2bfloat16(0.f);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -52,78 +76,482 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Dynamic shared memory of one block: sQ (kMaxRows x HD), sK (kTile x
-// (HD+1)), sV (kTile x HD), all fp32.
-inline size_t smem_bytes(int hd) {
-  return sizeof(float) * ((size_t)kMaxRows * hd + (size_t)kTile * (hd + 1) +
-                          (size_t)kTile * hd);
+// ---------------------------------------------------------------------------
+// staging
+// ---------------------------------------------------------------------------
+
+// One asynchronous copy of BYTES into shared memory; valid == false
+// zero-fills the destination and reads nothing.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n));
+  }
 }
 
-// Each thread issues this many loads before it stores any of them. The loads
-// of a batch are independent, so their device-memory latencies overlap
-// instead of adding up: staging a 32 x 64 tile takes two round trips, not 16.
-constexpr int kLoadBatch = 8;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-// Stage n fp32 values into shared memory: dst[idx] = load(idx), idx < n.
-template <typename Load>
-__device__ __forceinline__ void stage(float* dst, int n, Load load) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kLoadBatch) {
-    float r[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = i0 + u * kThreads;
-      r[u] = idx < n ? load(idx) : 0.f;
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `rows` rows of `hd` elements into shared memory, row j to
+// dst + j * ld. row_ptr(j) gives row j's source, or nullptr for a row to
+// zero-fill; `any` is some valid global address. `vec` is the copy width in
+// bytes: 16, 8 or 4 go through cp.async, anything less one element at a
+// time by plain loads. Only the hd columns are written.
+template <typename T, typename RowPtr>
+__device__ __forceinline__ void load_rows(T* dst, int ld, int rows, int hd,
+                                          int vec, const T* any,
+                                          RowPtr row_ptr) {
+  if (vec >= 4) {
+    const int per_row = hd * (int)sizeof(T) / vec;
+    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+      const int j = i / per_row, c = i - j * per_row;
+      const T* src = row_ptr(j);
+      char* d = reinterpret_cast<char*>(dst + (size_t)j * ld) + c * vec;
+      const char* s = reinterpret_cast<const char*>(src ? src : any) +
+                      (src ? c * vec : 0);
+      if (vec == 16) {
+        cp_async<16>(d, s, src != nullptr);
+      } else if (vec == 8) {
+        cp_async<8>(d, s, src != nullptr);
+      } else {
+        cp_async<4>(d, s, src != nullptr);
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = i0 + u * kThreads;
-      if (idx < n) dst[idx] = r[u];
+  } else {
+    for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
+      const int j = i / hd, c = i - j * hd;
+      const T* src = row_ptr(j);
+      dst[(size_t)j * ld + c] = src ? src[c] : zero_of<T>();
     }
   }
 }
 
-// Stage keys [k0, k0 + kTile) of one kv head. Key j of the head starts at
-// base + j * key_stride; keys at or past n_keys are zero-filled. Threads walk
-// the tile in row-major order, so neighbouring threads load neighbouring
-// elements of a key row.
+// Copy rows [0, n) of a tile of keys into shared memory, row j from
+// src + j * stride to dst + j * ld; rows at or past n_valid are zero-filled.
+// Each thread walks (row, chunk) pairs without dividing: the K/V tile is
+// copied once per tile, so its address arithmetic sits in the main loop.
+template <int V, typename T>
+__device__ __forceinline__ void copy_tile_v(T* dst, int ld, const T* src,
+                                            size_t stride, int n, int n_valid,
+                                            int hd) {
+  const int per_row = hd * (int)sizeof(T) / V;
+  int j = threadIdx.x / per_row, c = threadIdx.x - j * per_row;
+  const int dj = blockDim.x / per_row, dc = blockDim.x - dj * per_row;
+  while (j < n) {
+    const bool valid = j < n_valid;
+    cp_async<V>(reinterpret_cast<char*>(dst + (size_t)j * ld) + c * V,
+                reinterpret_cast<const char*>(valid ? src + j * stride : src) +
+                    c * V,
+                valid);
+    j += dj;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++j;
+    }
+  }
+}
+
+// The narrow copies (rows whose byte width is not a multiple of 16), out of
+// line so that the main loop's code stays small.
 template <typename T>
-__device__ __forceinline__ void stage_kv(const T* __restrict__ k,
-                                         const T* __restrict__ v, size_t base,
-                                         size_t key_stride, int k0, int n_keys,
-                                         int hd, float* sK, float* sV) {
-  const int n = kTile * hd;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kLoadBatch) {
-    float kr[kLoadBatch], vr[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = i0 + u * kThreads;
-      const int j = idx / hd, d = idx - j * hd;
-      kr[u] = 0.f;
-      vr[u] = 0.f;
-      if (idx < n && k0 + j < n_keys) {
-        const size_t off = base + (size_t)(k0 + j) * key_stride + d;
-        kr[u] = to_f(k[off]);
-        vr[u] = to_f(v[off]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = i0 + u * kThreads;
-      const int j = idx / hd, d = idx - j * hd;
-      if (idx < n) {
-        sK[j * (hd + 1) + d] = kr[u];
-        sV[j * hd + d] = vr[u];
-      }
-    }
+__device__ __noinline__ void copy_tile_narrow(T* dst, int ld, const T* src,
+                                              size_t stride, int n,
+                                              int n_valid, int hd, int vec) {
+  if (vec == 8) {
+    copy_tile_v<8>(dst, ld, src, stride, n, n_valid, hd);
+  } else if (vec == 4) {
+    copy_tile_v<4>(dst, ld, src, stride, n, n_valid, hd);
+  } else {
+    load_rows(dst, ld, n, hd, vec, src, [&](int j) -> const T* {
+      return j < n_valid ? src + j * stride : nullptr;
+    });
   }
 }
 
-// The online-softmax state of a warp's ROWS query rows (rows warp + kWarps *
-// i). ROWS defaults to the most a warp can hold; a caller with fewer rows
-// (decode with G <= kWarps) asks for fewer, so no instruction is spent on an
-// empty row.
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, int ld, const T* src,
+                                          size_t stride, int n, int n_valid,
+                                          int hd, int vec) {
+  if (vec == 16) {
+    copy_tile_v<16>(dst, ld, src, stride, n, n_valid, hd);
+  } else {
+    copy_tile_narrow(dst, ld, src, stride, n, n_valid, hd, vec);
+  }
+}
+
+// Zero columns [c0, c1) of `rows` rows (the head-dim padding).
+template <typename T>
+__device__ __forceinline__ void zero_cols(T* dst, int ld, int rows, int c0,
+                                          int c1) {
+  const int w = c1 - c0;
+  if (w <= 0) return;
+  for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+    const int j = i / w;
+    dst[(size_t)j * ld + c0 + i - j * w] = zero_of<T>();
+  }
+}
+
+// The widest copy (16, 8 or 4 bytes) that divides a row of hd elements and
+// keeps every pointer aligned; esize if none does (bf16 rows of odd width).
+inline int copy_width(int hd, int esize, const void* const* ptrs, int n) {
+  for (int v = 16; v >= 4; v >>= 1) {
+    bool ok = (hd * esize) % v == 0;
+    for (int i = 0; i < n; ++i) ok = ok && (uintptr_t)ptrs[i] % v == 0;
+    if (ok) return v;
+  }
+  return esize;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one instruction (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Keys per staged tile of the bf16 routine: 64, or 32 where the head dim is
+// above 128 (its 128 output accumulators a thread leave no room for 64).
+template <int KD>
+struct TcTile {
+  static constexpr int BN = KD <= 8 ? 64 : 32;
+  static constexpr int LD = KD * 16 + 8;  // row stride of sQ/sK/sV, elements
+  static constexpr int STAGES = 2;        // K/V tiles in shared memory
+};
+
+// A lane's row r of a warp's 16 * MT rows, r = 0 .. 2 MT - 1: row
+// 16 * (r / 2) + g + 8 * (r % 2), g = lane / 4.
+__device__ __forceinline__ int frag_row(int r) {
+  return 16 * (r >> 1) + ((threadIdx.x & 31) >> 2) + 8 * (r & 1);
+}
+
+// A operands (Q) of a warp's 16 * MT rows held in registers for the whole
+// kernel, loaded from global memory once: no shared memory, no barrier. A
+// row pointer is null for a row past the end (zeros); columns at or past hd
+// are zeros (the head-dim padding). `pairs`: rows are 4-byte aligned and hd
+// is even, so a lane loads two columns at once.
+template <int KD, int MT>
+struct QRegs {
+  uint32_t f[MT][KD][4];
+
+  __device__ __forceinline__ void load(const bf16* const (&rows)[2 * MT],
+                                       int hd, bool pairs) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kc = 0; kc < KD; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bf16* row = rows[2 * mt + (e & 1)];
+          const int col = kc * 16 + 2 * t + 8 * (e >> 1);
+          uint32_t v = 0;
+          if (row && col < hd) {
+            if (pairs) {
+              v = *reinterpret_cast<const uint32_t*>(row + col);
+            } else {
+              const bf16 hi = col + 1 < hd ? row[col + 1] : zero_of<bf16>();
+              v = pack_bf16(__bfloat162float(row[col]), __bfloat162float(hi));
+            }
+          }
+          f[mt][kc][e] = v;
+        }
+  }
+
+  __device__ __forceinline__ void operator()(int mt, int kc,
+                                             uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = f[mt][kc][e];
+  }
+};
+
+// A operands (Q) read from the warp's rows staged in shared memory.
+template <int KD>
+struct QSmem {
+  const bf16* sQ;  // the warp's first row, row stride TcTile<KD>::LD
+
+  __device__ __forceinline__ void operator()(int mt, int kc,
+                                             uint32_t (&a)[4]) const {
+    const int lane = threadIdx.x & 31;
+    const int row = 16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8;
+    ldsm_x4(a, sQ + row * TcTile<KD>::LD + kc * 16 + (lane >> 4) * 8);
+  }
+};
+
+// The online-softmax state of one warp's 16 * MT query rows, in mma
+// fragments: lane (g = lane / 4, t = lane % 4) holds rows frag_row(r),
+// r < 2 MT, and output columns 8 * j + 2t, 8 * j + 2t + 1 of every 8-wide
+// tile j. With MT = 2 the two 16-row tiles share every K and V fragment
+// that ldmatrix brings, and their products are independent chains. The row
+// max m is kept in raw score units (softcapped scores in log2 units); l is
+// this lane's share of the row sum until finish() adds the 4 lanes' shares.
+//
+// Row strides of sQ/sK/sV are KD * 16 + 8 elements: a row is 16 bytes past
+// a multiple of 32, so the 8 rows of an ldmatrix hit 8 different 16-byte
+// bank groups.
+template <int KD, int MT = 1>
+struct TcWarp {
+  static constexpr int BN = TcTile<KD>::BN;
+  static constexpr int LD = TcTile<KD>::LD;
+  static constexpr int NT = BN / 8;  // 8-key tiles of the score tile
+  static constexpr int DT = KD * 2;  // 8-wide tiles of the output
+  static constexpr int R = 2 * MT;   // rows a lane holds
+  float o[MT][DT][4];
+  float m[R], l[R];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+    }
+  }
+
+  // Fold one staged tile of BN keys into the warp's rows, with a logit
+  // softcap when CAP. qa(mt, kc, a) gives the A operand of row tile mt,
+  // depth step kc (QRegs or QSmem);
+  // sK, sV: the tile's keys. ok(r, c) says whether the lane's row
+  // frag_row(r) may attend the tile's key c; full == true: every pair may,
+  // and ok is not asked.
+  template <bool CAP, typename QA, typename Ok>
+  __device__ __forceinline__ void update(const QA& qa, const bf16* sK,
+                                         const bf16* sV, float scale,
+                                         float softcap, bool full, Ok ok) {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+
+    // S = Q K^T: B from key rows (non-transposed), shared by the row tiles
+    const int b_row = (lane & 7) + (lane >> 4) * 8;
+    const int b_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kc = 0; kc < KD; ++kc) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) qa(mt, kc, a[mt]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, sK + (np * 16 + b_row) * LD + kc * 16 + b_col);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // softcap (CAP, a template argument so that a kernel without one
+    // carries no tanh code) and mask (a uniform branch around all of the
+    // lane's scores). Without a softcap the scores stay raw and the scale
+    // goes into the exponent (scale > 0 keeps their order).
+    float scale2 = scale * kLog2e;
+    if constexpr (CAP) {
+      const float inner = scale / softcap, outer = softcap * kLog2e;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][j][e] = outer * tanhf(s[mt][j][e] * inner);
+      scale2 = 1.f;
+    }
+    if (!full) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!ok(2 * mt + (e >> 1), j * 8 + 2 * t + (e & 1)))
+              s[mt][j][e] = kNegInf;
+    }
+    // the tile's row max (4 lanes hold a row), then p = 2^((s - m) * scale2)
+    // in one FFMA and one ex2 a score. A masked score is kNegInf, whose p is
+    // 0 against any finite m; while a row has seen no key (m = kNegInf) its
+    // offset is taken as 0, so its masked scores give 0 too.
+    float mx[R], alpha[R], off[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) mx[r] = kNegInf;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 2 * mt + (e >> 1);
+          mx[r] = fmaxf(mx[r], s[mt][j][e]);
+        }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2((m[r] - m_new) * scale2);
+      m[r] = m_new;
+      off[r] = m_new == kNegInf ? 0.f : m_new * scale2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 2 * mt + (e >> 1);
+          const float p = ex2(fmaf(s[mt][j][e], scale2, -off[r]));
+          s[mt][j][e] = p;
+          l[r] += p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        o[mt][j][0] *= alpha[2 * mt];
+        o[mt][j][1] *= alpha[2 * mt];
+        o[mt][j][2] *= alpha[2 * mt + 1];
+        o[mt][j][3] *= alpha[2 * mt + 1];
+      }
+    }
+
+    // O += P V: the score fragments of two 8-key tiles are the A operand of
+    // one 16-key step; V comes transposed by ldmatrix
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int v_col = (lane >> 4) * 8;
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kc][0], s[mt][2 * kc][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kc][2], s[mt][2 * kc][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kc + 1][0], s[mt][2 * kc + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kc + 1][2], s[mt][2 * kc + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_t(b, sV + (kc * 16 + v_row) * LD + dp * 16 + v_col);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][2 * dp], a[mt], b[0], b[1]);
+          mma_bf16(o[mt][2 * dp + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // Add the 4 lanes' shares of each row sum.
+  __device__ __forceinline__ void finish() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    }
+  }
+
+  // Write the lane's values of row frag_row(r): put(r, col, value) for
+  // every column below hd, value = acc / l (l == 0 -> 1, as the TPU kernel
+  // guards it) when `normalize`, else the raw acc.
+  template <typename Put>
+  __device__ __forceinline__ void store(int hd, bool normalize,
+                                        Put put) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float inv = normalize ? 1.f / (l[r] == 0.f ? 1.f : l[r]) : 1.f;
+      const int mt = r >> 1, i = r & 1;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const int col = j * 8 + 2 * t;
+        if (col < hd) put(r, col, o[mt][j][2 * i] * inv);
+        if (col + 1 < hd) put(r, col + 1, o[mt][j][2 * i + 1] * inv);
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;  // warps of an fp32 block
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 8;
+constexpr int kTile = 32;  // keys per staged fp32 tile
+
+// Row stride (floats) of the fp32 tiles: hd rounded up to 4, plus 4 where
+// that makes the stride an odd number of 16-byte groups, so that the 8
+// lanes of a float4 read phase hit 8 different bank groups.
+__host__ __device__ inline int fma_ld(int hd) {
+  const int g = (hd + 3) / 4;
+  return 4 * (g | 1);
+}
+
+// The online-softmax state of a warp's ROWS query rows (rows warp + kWarps
+// * i of the block's tile). ROWS is the most a warp holds; decode with
+// G <= kWarps asks for one, so no instruction is spent on an empty row.
 template <int HPL, int ROWS = kRowsPerWarp>
-struct RowState {
+struct FmaRows {
   float m[ROWS];
   float l[ROWS];
   float acc[ROWS][HPL];
@@ -138,26 +566,33 @@ struct RowState {
     }
   }
 
-  // Fold one staged tile into the warp's rows (rows warp + kWarps * i).
-  // mask(r, lane) says whether row r may attend the tile's key `lane`. A row
-  // whose every key in the tile is masked is left untouched; the callers
-  // guarantee that every row they write has at least one unmasked key.
+  // Fold one staged tile of kTile keys into the warp's rows. ld: the row
+  // stride of sQ, sK and sV (fma_ld(hd)); columns hd..ld of sQ and sK are
+  // zero. mask(r, lane) says whether row r may attend the tile's key
+  // `lane`. A row whose every key in the tile is masked is left untouched.
   template <typename Mask>
   __device__ __forceinline__ void update(const float* sQ, const float* sK,
-                                         const float* sV, int hd, int n_rows,
-                                         float scale, float softcap,
-                                         Mask mask) {
+                                         const float* sV, int ld, int hd,
+                                         int n_rows, float scale,
+                                         float softcap, Mask mask) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     float s[ROWS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) s[i] = 0.f;
-    const float* krow = sK + lane * (hd + 1);
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      const float kd = krow[d];
+    const float4* krow = reinterpret_cast<const float4*>(sK + lane * ld);
+    const int n4 = (hd + 3) / 4;
+#pragma unroll 2
+    for (int d4 = 0; d4 < n4; ++d4) {
+      const float4 kd = krow[d4];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        s[i] = fmaf(sQ[(warp + kWarps * i) * hd + d], kd, s[i]);
+      for (int i = 0; i < ROWS; ++i) {
+        const float4 qd = reinterpret_cast<const float4*>(
+            sQ + (warp + kWarps * i) * ld)[d4];
+        s[i] = fmaf(qd.x, kd.x, s[i]);
+        s[i] = fmaf(qd.y, kd.y, s[i]);
+        s[i] = fmaf(qd.z, kd.z, s[i]);
+        s[i] = fmaf(qd.w, kd.w, s[i]);
+      }
     }
     float p[ROWS];
 #pragma unroll
@@ -185,7 +620,7 @@ struct RowState {
 #pragma unroll
       for (int h = 0; h < HPL; ++h) {
         const int d = lane + 32 * h;
-        vv[h] = d < hd ? sV[j * hd + d] : 0.f;
+        vv[h] = d < hd ? sV[j * ld + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
@@ -196,15 +631,17 @@ struct RowState {
     }
   }
 
-  // Write row i as acc / l (l == 0 -> 1, as the TPU kernel guards it).
-  template <typename T>
-  __device__ __forceinline__ void store(int i, T* out_row, int hd) const {
+  // Write row i: put(col, value) for the lane's columns below hd, value =
+  // acc / l (l == 0 -> 1) when `normalize`, else the raw acc.
+  template <typename Put>
+  __device__ __forceinline__ void store(int i, int hd, bool normalize,
+                                        Put put) const {
     const int lane = threadIdx.x & 31;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
+    const float inv = normalize ? 1.f / (l[i] == 0.f ? 1.f : l[i]) : 1.f;
 #pragma unroll
     for (int h = 0; h < HPL; ++h) {
       const int d = lane + 32 * h;
-      if (d < hd) store_f(out_row + d, acc[i][h] / denom);
+      if (d < hd) put(d, acc[i][h] * inv);
     }
   }
 };
@@ -214,22 +651,46 @@ struct RowState {
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace attn
 
-// Instantiate `LAUNCH(T, HPL)` for the head-dim-per-lane count of `hd`.
-#define ATTN_DISPATCH_HPL(hd, T, LAUNCH)         \
+// Instantiate `LAUNCH(HPL)` for the head-dim-per-lane count of `hd` (the
+// fp32 routine).
+#define ATTN_DISPATCH_HPL(hd, LAUNCH)            \
   switch ((hd + 31) / 32) {                      \
-    case 1: LAUNCH(T, 1); break;                 \
-    case 2: LAUNCH(T, 2); break;                 \
-    case 3: LAUNCH(T, 3); break;                 \
-    case 4: LAUNCH(T, 4); break;                 \
-    case 5: LAUNCH(T, 5); break;                 \
-    case 6: LAUNCH(T, 6); break;                 \
-    case 7: LAUNCH(T, 7); break;                 \
-    case 8: LAUNCH(T, 8); break;                 \
+    case 1: LAUNCH(1); break;                    \
+    case 2: LAUNCH(2); break;                    \
+    case 3: LAUNCH(3); break;                    \
+    case 4: LAUNCH(4); break;                    \
+    case 5: LAUNCH(5); break;                    \
+    case 6: LAUNCH(6); break;                    \
+    case 7: LAUNCH(7); break;                    \
+    case 8: LAUNCH(8); break;                    \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+// Instantiate `LAUNCH(KD)` for a padded head dim of KD * 16 >= hd (the bf16
+// routine): 16 to 96 in steps of 16, then 128, 192 and 256.
+#define ATTN_DISPATCH_KD(hd, LAUNCH)             \
+  switch ((hd + 15) / 16) {                      \
+    case 1: LAUNCH(1); break;                    \
+    case 2: LAUNCH(2); break;                    \
+    case 3: LAUNCH(3); break;                    \
+    case 4: LAUNCH(4); break;                    \
+    case 5: LAUNCH(5); break;                    \
+    case 6: LAUNCH(6); break;                    \
+    case 7:                                      \
+    case 8: LAUNCH(8); break;                    \
+    case 9:                                      \
+    case 10:                                     \
+    case 11:                                     \
+    case 12: LAUNCH(12); break;                  \
+    case 13:                                     \
+    case 14:                                     \
+    case 15:                                     \
+    case 16: LAUNCH(16); break;                  \
     default: return (int)cudaErrorInvalidValue; \
   }

@@ -18,11 +18,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # The JAX wrapper's tile knobs, validated as it validates them. The Hopper
-# kernel picks its own tiles (32 keys, up to 32 query rows per block).
+# kernel picks its own tiles: 16 to 128 query rows per bf16 block (32 in
+# fp32), whatever the group size, and 32 or 64 keys per staged tile.
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 MAX_HEAD_DIM = 256
-MAX_GROUP = 32  # query heads per kv head that one block can hold
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,18 +76,24 @@ def flash_attention(
         raise ValueError("flash_attention: q, k and v must share a device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    if hd > MAX_HEAD_DIM or h // kh > MAX_GROUP:
-        raise ValueError(
-            f"flash_attention: head_dim {hd} (max {MAX_HEAD_DIM}) or group "
-            f"{h // kh} (max {MAX_GROUP}) beyond the kernel's range")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} beyond the "
+                         f"kernel's range (max {MAX_HEAD_DIM})")
+    out = _launch(q, k, v, causal=causal, window=window, softcap=softcap)
+    launches += 1
+    return out
+
+
+def _launch(q, k, v, *, causal, window, softcap):
+    """Launch the kernel on checked CUDA tensors."""
+    b, s, h, hd = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, kh, hd, int(causal), int(window or 0), float(softcap),
-        hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
+        b, s, h, k.shape[2], hd, int(causal), int(window or 0),
+        float(softcap), hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
-    launches += 1
     return out

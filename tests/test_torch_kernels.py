@@ -40,13 +40,36 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
+# The coming slices' attention shapes at CPU sizes (short S, a window of
+# 16): granite-34b's G = 48, a G of 7, gemma2's Hd = 256 with a window and
+# softcap 50, and a head dim that is not a multiple of 16. The CUDA kernels
+# meet them at full size in chip_smoke.py.
+PORT_FLASH_CASES = [
+    # b, s, h, kv, hd, window, softcap, dtype
+    (1, 24, 48, 1, 128, 0, 0.0, jnp.float32),
+    (2, 40, 14, 2, 64, 0, 0.0, jnp.float32),
+    (1, 64, 4, 2, 256, 16, 50.0, jnp.float32),
+    (1, 48, 4, 2, 40, 0, 0.0, jnp.float32),
+    (1, 24, 48, 1, 128, 0, 0.0, jnp.bfloat16),
+    (1, 64, 4, 2, 256, 16, 50.0, jnp.bfloat16),
+]
+PORT_DECODE_CASES = [
+    # b, s, h, kv, hd, valid_len, softcap
+    (2, 64, 48, 1, 128, 50, 0.0),
+    (1, 40, 14, 2, 64, 33, 0.0),
+    (1, 64, 4, 2, 256, 60, 50.0),
+    (2, 48, 8, 2, 40, 31, 0.0),
+]
+
+
 def _flash_inputs(b, s, h, kv, hd, dtype):
     rng = np.random.default_rng(b * s + h)
     return [_pair(rng, shape, dtype)
             for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,window,cap,dtype", FLASH_CASES)
+@pytest.mark.parametrize("b,s,h,kv,hd,window,cap,dtype",
+                         FLASH_CASES + PORT_FLASH_CASES)
 def test_flash_attention_plain_matches_jax(b, s, h, kv, hd, window, cap,
                                            dtype):
     (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(b, s, h, kv, hd, dtype)
@@ -60,7 +83,8 @@ def test_flash_attention_plain_matches_jax(b, s, h, kv, hd, window, cap,
     np.testing.assert_allclose(_np(ref), _np(pallas), atol=tol)
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,window,cap,dtype", FLASH_CASES)
+@pytest.mark.parametrize("b,s,h,kv,hd,window,cap,dtype",
+                         FLASH_CASES + PORT_FLASH_CASES)
 def test_flash_attention_cpu_tensor_takes_plain_version(b, s, h, kv, hd,
                                                         window, cap, dtype):
     (_, tq), (_, tk), (_, tv) = _flash_inputs(b, s, h, kv, hd, dtype)
@@ -79,7 +103,8 @@ def _decode_inputs(b, s, h, kv, hd):
             for shape in ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,vlen,cap", DECODE_CASES)
+@pytest.mark.parametrize("b,s,h,kv,hd,vlen,cap",
+                         DECODE_CASES + PORT_DECODE_CASES)
 def test_flash_decode_plain_matches_jax(b, s, h, kv, hd, vlen, cap):
     (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(b, s, h, kv, hd)
     g = h // kv
@@ -91,7 +116,8 @@ def test_flash_decode_plain_matches_jax(b, s, h, kv, hd, vlen, cap):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,vlen,cap", DECODE_CASES)
+@pytest.mark.parametrize("b,s,h,kv,hd,vlen,cap",
+                         DECODE_CASES + PORT_DECODE_CASES)
 def test_flash_decode_cpu_tensor_takes_plain_version(b, s, h, kv, hd, vlen,
                                                      cap):
     (_, tq), (_, tk), (_, tv) = _decode_inputs(b, s, h, kv, hd)
@@ -142,3 +168,55 @@ def test_kernel_sources_and_build_are_lazy():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
     assert _build.load.cache_info().currsize == 0
+
+
+def test_wrappers_have_no_group_limit():
+    """Any G with heads % kv_heads == 0 is taken: the kernels' row tiles
+    hold a fixed number of (position, group head) rows, not one block per
+    group."""
+    assert not hasattr(fa_ops, "MAX_GROUP") and not hasattr(fd_ops,
+                                                            "MAX_GROUP")
+    assert fa_ops.MAX_HEAD_DIM == fd_ops.MAX_HEAD_DIM == 256
+
+
+@pytest.mark.parametrize("b,kv,s", [
+    (4, 8, 112), (1, 8, 8192), (2, 1, 300), (1, 16, 4608), (3, 2, 100),
+    (1, 1, 31), (1, 1, 100000)])
+def test_decode_splits_follow_the_capacity(b, kv, s):
+    """The cache split count is a function of the shapes alone (never of
+    valid_len): at least one split, every split but a lone one at least
+    MIN_SPLIT_KEYS positions long, and about SPLIT_BLOCKS blocks once the
+    capacity allows that many."""
+    n = fd_ops.num_splits(b, kv, s)
+    assert n >= 1
+    assert n == 1 or s // n >= fd_ops.MIN_SPLIT_KEYS
+    assert (n - 1) * b * kv < fd_ops.SPLIT_BLOCKS
+    if s // fd_ops.MIN_SPLIT_KEYS >= fd_ops.SPLIT_BLOCKS:
+        assert n * b * kv >= fd_ops.SPLIT_BLOCKS
+
+
+def test_library_path_changes_with_every_included_header(tmp_path,
+                                                          monkeypatch):
+    """A library is named by its source and every local header it includes,
+    so editing a header rebuilds each kernel that includes it, and only
+    those."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    kernels = tmp_path / "kernels"
+    shutil.copytree(_build.KERNEL_DIR, kernels,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(_build, "KERNEL_DIR", kernels)
+    for name in _build.KERNELS:
+        src = _build._source(name)
+        for inc in _build._LOCAL_INCLUDE.findall(src.read_text()):
+            assert (src.parent / inc).resolve() in _build.inputs(name)
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    header = kernels / "attn_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    users = {name for name in _build.KERNELS
+             if header.resolve() in _build.inputs(name)}
+    assert users == {"flash_attention", "flash_decode"}
+    for name in _build.KERNELS:
+        assert (before[name] != after[name]) == (name in users)
