@@ -10,11 +10,15 @@ raises (and so exits non-zero) on failure:
    in the checkout (one ``nvcc`` per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    over the CPU tests' case tables, the serving shapes and the long cases
-   (for the attention kernels also the coming slices' shapes, in fp32 and
-   bf16), and time it beside its plain version and one library call (where
-   one PyTorch call computes the same function); the attention kernels
-   also with L2 flushed and at their long shapes; the MoE router's tie
-   order on the card;
+   (for the attention kernels also the coming slices' shapes, for
+   ``ssd_scan`` zamba2-2.7b's, for ``moe_ffn`` the table in bf16 too), show
+   that two runs of ``ssd_scan`` and ``moe_ffn`` on the same inputs are
+   bit-identical, and time each kernel beside its plain version and one
+   library call (where one PyTorch call computes the same function):
+   ``ssd_scan`` at every prefill bucket (with L2 flushed at S=96),
+   ``moe_ffn`` at
+   every capacity, the attention kernels also with L2 flushed, and the long
+   cases; the MoE router's tie order on the card;
 4. models: each reduced model on the card against the same weights on
    the CPU (logits and greedy tokens); then llama3.2-1b, mamba2-370m and
    granite-moe-1b-a400m, each at its published width with seeded random
@@ -31,8 +35,9 @@ raises (and so exits non-zero) on failure:
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` is the sum over the models' drains, ``launches_by_model``
-each model's drain count; the attention kernels add ``l2_flushed_ms`` and
-their ``long`` case); the last line is ``{"ok": true, "device":
+each model's drain count; ``l2_flushed_ms`` and the ``long`` case where
+timed; ``ssd_scan`` adds ``by_seq`` and ``zamba2``,
+``moe_ffn`` ``by_capacity``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -129,6 +134,10 @@ SSD_CASES = [
 ]
 MAIN_SSD = dict(b=1, h=32, p=64, g=1, n=128)
 MAIN_SSD_S = (32, 64, 96)
+# zamba2-2.7b's SSD (80 heads, P=64, N=64, chunk 256; not served yet), and
+# the long cases: a 4096-token prompt in chunks of 256, and two groups
+LONG_SSD = (1, 4096, 32, 64, 1, 128, 256)
+ZAMBA2_SSD = (1, 512, 80, 64, 1, 64, 256)
 SSD_TOL = 5e-4       # tests/test_kernels.py
 SSD_TOL_REACH = 25.0  # outputs of that table reach 7.8-27 (CPU tests)
 
@@ -212,6 +221,20 @@ def time_flushed_ms(fn, iters: int = 20) -> float:
         fn()
 
     return time_ms(flushed, iters) - time_ms(flush.zero_, iters)
+
+
+def check_repeat(what: str, fn) -> None:
+    """Two calls of ``fn`` on the same inputs give bit-identical outputs:
+    every sum of the kernels runs in a fixed order, with no atomics."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not isinstance(first, tuple):
+        first, second = (first,), (second,)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"  {what}: two runs bit-identical: {'yes' if same else 'NO'}")
+    if not same:
+        raise AssertionError(f"{what}: two runs on the same inputs differ")
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: str):
@@ -430,13 +453,15 @@ def check_ssd_split(gen):
         (yo.transpose(1, 2), ho, "oracle")])
 
 
-def time_ssd(ins, chunk):
+def time_ssd(ins, chunk, flushed=False):
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     x, dt, A, Bm, Cm, D = ins
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     ms = time_ms(lambda: ops.ssd(*ins, chunk))
+    extra = {"l2_flushed_ms": time_flushed_ms(lambda: ops.ssd(*ins, chunk))} \
+        if flushed else {}
     plain = time_ms(lambda: ssd_chunked(*ins, chunk))
     n_bytes = 4 * (sum(t.numel() for t in ins) + x.numel() + b * h * p * n)
     nc = s // chunk
@@ -448,7 +473,7 @@ def time_ssd(ins, chunk):
             + b * h * nc * chunk * p * n)     # state updates
     bnd, by = bound_ms(n_bytes, 2.0 * macs, "float32")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                bound_by=by)
+                bound_by=by, **extra)
 
 
 def _moe_inputs(gen, g, e, c, d, f, dtype, scale=None):
@@ -508,9 +533,11 @@ def time_moe(ins):
     flops = 6.0 * g * e * c * d * f  # two (D,F) products and one (F,D)
     dtype = str(x.dtype).replace("torch.", "")
     bnd, by = bound_ms(n_bytes, flops, dtype)
+    pl = ops.plan(g, e, c, d, f, x.dtype)
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
                 bound_by=by,
-                fp32_cuda_core_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+                fp32_cuda_core_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                blocks=e * pl.blocks, cluster=pl.nf, row_tile=pl.bm)
 
 
 def check_router_ties():
@@ -623,20 +650,28 @@ def phase_kernels():
     m = MAIN_SSD
     note("ssd_scan", check_ssd((m["b"], 96, m["h"], m["p"], m["g"], m["n"],
                                 96), gen, h0_std=1.0, dt_scale=0.05)[0])
+    main_ssd = {}
     for s in MAIN_SSD_S:
-        err, main_ssd = check_ssd(
+        err, main_ssd[s] = check_ssd(
             (m["b"], s, m["h"], m["p"], m["g"], m["n"], s), gen)
         note("ssd_scan", err)
-    log("  ssd_scan long cases")
-    note("ssd_scan", check_ssd((1, 4096, m["h"], m["p"], 1, m["n"], 256),
-                               gen)[0])
+    log("  ssd_scan long cases and zamba2-2.7b's shape")
+    err, long_ssd = check_ssd(LONG_SSD, gen)
+    note("ssd_scan", err)
     note("ssd_scan", check_ssd((1, 512, m["h"], m["p"], 2, m["n"], 256),
                                gen)[0])
+    err, zamba2_ssd = check_ssd(ZAMBA2_SSD, gen)
+    note("ssd_scan", err)
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    for what, (ins, chunk) in (("S=96", main_ssd[96]), ("long", long_ssd)):
+        check_repeat(f"ssd_scan {what}",
+                     lambda: ssd_ops.ssd(*ins, chunk))
 
     log("  moe_ffn: the CPU tests' table (fp32), an odd width, the serving "
         "shapes (fp32 and bf16), empty rows, and the long case")
-    for case in MOE_CASES + [(1, 3, 7, 33, 40)]:
-        note("moe_ffn", check_moe(case, "float32", gen, scale=0.1)[0])
+    for dtype in ("float32", "bfloat16"):
+        for case in MOE_CASES + [(1, 3, 7, 33, 40)]:
+            note("moe_ffn", check_moe(case, dtype, gen, scale=0.1)[0])
     m = MAIN_MOE
     main_moe = {}
     for dtype in ("float32", "bfloat16"):
@@ -655,13 +690,25 @@ def phase_kernels():
     note("moe_ffn", check_moe(long_case, "float32", gen)[0])
     err, long_moe = check_moe(long_case, "bfloat16", gen)
     note("moe_ffn", err)
+    from repro_torch.kernels.moe_ffn import ops as moe_ops
+    for what, ins in (("G=1 C=30 bf16", main_moe[30]),
+                      ("long bf16", long_moe)):
+        check_repeat(f"moe_ffn {what}", lambda: moe_ops.expert_ffn(*ins))
     check_router_ties()
 
     log("  timing at the serving shapes (bf16 expert FFN, fp32 SSD; CUDA "
         "graph replay)")
-    t_ssd = time_ssd(*main_ssd)
-    log(f"  ssd_scan S=96 chunk 96 (no single PyTorch call computes an SSD "
-        f"scan: library_ms null): {json.dumps(t_ssd)}")
+    log("  ssd_scan (no single PyTorch call computes an SSD scan: "
+        "library_ms null)")
+    t_ssd_s = {}
+    for s, (ins, chunk) in main_ssd.items():
+        t_ssd_s[s] = time_ssd(ins, chunk, flushed=s == max(MAIN_SSD_S))
+        log(f"  ssd_scan S={s} chunk {chunk}: {json.dumps(t_ssd_s[s])}")
+    t_ssd = {**t_ssd_s[max(MAIN_SSD_S)],
+             "by_seq": {s: t["ms"] for s, t in t_ssd_s.items()},
+             "zamba2": time_ssd(*zamba2_ssd)}
+    log(f"  ssd_scan zamba2-2.7b B=1 S=512 H=80 P=64 N=64 chunk 256: "
+        f"{json.dumps(t_ssd['zamba2'])}")
     log("  moe_ffn (no single PyTorch call computes a per-expert SwiGLU: "
         "library_ms null)")
     t_moe = {}
@@ -672,8 +719,10 @@ def phase_kernels():
     t_long = time_moe(long_moe)
     log(f"  moe_ffn long G=8 E=32 C=160 D=1024 F=512 bf16: "
         f"{json.dumps(t_long)}")
-    return errs, {**t_attn, "ssd_scan": t_ssd, "moe_ffn": t_moe[4]}, \
-        t_attn_long
+    t_moe_main = {**t_moe[4], "by_capacity": {c: t["ms"]
+                                              for c, t in t_moe.items()}}
+    return errs, {**t_attn, "ssd_scan": t_ssd, "moe_ffn": t_moe_main}, \
+        {**t_attn_long, "moe_ffn": t_long}
 
 
 # ---------------------------------------------------------------------------
@@ -1191,8 +1240,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  [{name}] {line.strip()}")
+            if "Compiling entry" in line:
+                log(f"  [{name}] {line.split('function')[-1].strip()[:100]}")
+            elif "registers" in line or "spill" in line:
+                log(f"  [{name}]   {line.split(':', 1)[-1].strip()}")
 
     errs, times, long_times = phase_kernels()
     log("phase 4: the models")
@@ -1231,12 +1282,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-        if name in long_times:  # the attention kernels: flushed and long
+        for key in ("l2_flushed_ms", "recompute_ms", "by_seq", "zamba2",
+                    "by_capacity"):
+            if key in t:
+                kernels[-1][key] = t[key]
+        if name in long_times:
             lt = long_times[name]
-            kernels[-1].update(l2_flushed_ms=t["l2_flushed_ms"], long={
-                key: lt[key] for key in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by",
-                                         "l2_flushed_ms")})
+            kernels[-1]["long"] = {key: lt[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "l2_flushed_ms") if key in lt}
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

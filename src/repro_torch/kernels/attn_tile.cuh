@@ -39,30 +39,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace attn {
+
+using namespace sm90;  // conversions, cp.async, ldmatrix, mma.sync
 
 constexpr int kMaxHeadDim = 256;
 constexpr unsigned kFull = 0xffffffffu;
 // same constant as the JAX package: a fully masked row stays finite
 constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ T zero_of() {
-  return T(0);
-}
-template <>
-__device__ __forceinline__ bf16 zero_of<bf16>() {
-  return __float2bfloat16(0.f);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -79,32 +66,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 // ---------------------------------------------------------------------------
 // staging
 // ---------------------------------------------------------------------------
-
-// One asynchronous copy of BYTES into shared memory; valid == false
-// zero-fills the destination and reads nothing.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copy `rows` rows of `hd` elements into shared memory, row j to
 // dst + j * ld. row_ptr(j) gives row j's source, or nullptr for a row to
@@ -221,41 +182,11 @@ inline int copy_width(int hd, int esize, const void* const* ptrs, int n) {
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c += a (16 x 16, row-major) * b (16 x 8, column-major), fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // 2^x in one instruction (denormal results flush to 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Keys per staged tile of the bf16 routine: 64, or 32 where the head dim is
@@ -645,15 +576,6 @@ struct FmaRows {
     }
   }
 };
-
-// Opt a kernel in to more than 48 KB of dynamic shared memory when it needs
-// it. Returns the CUDA error code.
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
 
 }  // namespace attn
 

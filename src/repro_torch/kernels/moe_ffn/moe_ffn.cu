@@ -7,112 +7,101 @@
 // expert e and capacity row c,
 //   out[g,e,c,:] = (silu(x[g,e,c,:] Wg_e) * (x[g,e,c,:] Wu_e)) Wd_e
 // with x (G,E,C,D), Wg/Wu (E,D,F), Wd (E,F,D) of one dtype (fp32 or
-// bf16), every product and sum in fp32, the result in that dtype. A row of zeros (an empty or dropped
-// capacity slot) gives a row of zeros.
+// bf16), every sum in fp32, the result in that dtype. A row of zeros (an
+// empty or dropped capacity slot) gives a row of zeros.
 //
 // What bounds it on this card: the expert weights. At granite-moe-1b's
 // serving shapes (G=1, E=32, D=1024, F=512, bf16) one launch reads
-// 3*E*D*F*2 B = 100.7 MB of weights -> 30.0 us at 3.35 TB/s, whatever C is;
-// x and the output add 2*E*C*D*2 B (0.3 MB at C=4, 3.9 MB at C=30). The
-// operations, 6*G*E*C*D*F = 0.40 GFLOP at C=4 and 3.02 GFLOP at C=30, take
-// 0.4-3.1 us at the bf16 tensor-core peak, so by that rate the bound is
-// bytes at every serving shape. This first version does them as fp32 FMA
-// on the CUDA cores (67 TFLOP/s): 6.0 us at C=4 but 45 us at C=30, so a
-// prefill launch is held by arithmetic before it reaches the bytes bound.
+// 3*E*D*F*2 B = 100.7 MB of weights -> 30.0 us at 3.35 TB/s, whatever C is
+// (C = 4 per decode tick, 10/20/30 per prefill bucket); the 0.4-3.0 GFLOP
+// take 0.4-3.1 us at the bf16 tensor-core peak. With 4096 tokens (G=8,
+// C=160) the 129 GFLOP take 0.130 ms at that peak: operations bound.
 //
 // What the design does about it:
-// - the TPU grid walks F sequentially into one VMEM accumulator; on the card
-//   blocks run in no order, so the grid is (G*E, C-tiles, F-ranges): at
-//   decode G*E = 32 and one block per (g, e) would leave 100 of 132 SMs
-//   idle while the weights stream, so F is cut into ranges until about two
-//   blocks per SM are in flight (8 ranges of 64 at every serving shape);
-// - a block computes h = silu(x Wg) * (x Wu) for its C-tile and F-range into
-//   shared memory (h never reaches device memory), then its partial
-//   down-projection over all of D;
-// - with more than one F-range the partials go to an fp32 scratch buffer
-//   that the wrapper allocates, and a second kernel sums them in the fixed
-//   order of the ranges: no atomics, so a run repeats itself bit for bit (a
-//   one-ulp change in a layer can flip a later layer's top-k choice);
-// - Wg/Wu are read along F (32 lanes on 32 neighbouring columns) and Wd
-//   along D (a thread owns two neighbouring columns), each element once per
-//   C-tile; at the serving shapes C fits one tile (C <= 32), so once per
-//   launch. The capacity rows of a tile live in each thread's registers
-//   (phase A: BC gate and BC up sums for one F column; phase B: BC x 2
-//   output sums), so one weight load feeds BC FMAs;
-// - the x tile is staged in shared memory as fp32, 512 columns of D at a
-//   time, and read as float4 broadcasts; the four warps that share an F
-//   column split D and their sums are added in a fixed order.
-// Known limits: fp32 FMA on the CUDA cores, not wgmma; no TMA or cp.async
-// pipeline; the scratch round trip (8 ranges x E*C*D fp32) at prefill.
+// - one thread-block cluster per (expert, tile of capacity rows). The rows
+//   of a tile are the expert's rows across all groups (row m = g*C + c), so
+//   at G > 1 a weight tile is reused by every row of the tile instead of
+//   being streamed once per group; at the serving shapes (G=1, C <= 30) one
+//   tile holds all rows and each weight byte is read once per launch;
+// - the cluster's nf blocks split F for the gate/up products (block r owns
+//   h[:, r*fr : (r+1)*fr]) and then D for the down-projection (block r owns
+//   out[:, r*dr : (r+1)*dr]). Between the two, every block copies its
+//   peers' parts of h through distributed shared memory, so each block sums
+//   its outputs over all of F itself, in one fixed order: no scratch in
+//   device memory, no second kernel, no atomics, and a run repeats itself
+//   bit for bit (a one-ulp change in a layer can flip a later top-k
+//   choice). At the serving shapes: 32 clusters of 4 blocks;
+// - weights stream through a ring of four shared-memory stages filled by
+//   16-byte cp.async from all threads (~56 KB in flight a block). The depth
+//   chunks of the gate/up products and of the down-projection form one
+//   sequence, so Wd's first chunks are in flight while the cluster
+//   exchanges h. A block of 16 or 32 rows takes at most half an SM's shared
+//   memory: at one block an SM the H100 cannot hold all 32 clusters of 4 at
+//   once, and a second wave doubles the time;
+// - bf16: both products on the tensor cores (mma.sync m16n8k16, bf16
+//   operands, fp32 accumulators; fragments by ldmatrix, .trans for the
+//   k-major weights). silu(g) * u is taken in fp32 in registers and h is
+//   rounded to bf16 as the A operand of the down-projection, as the
+//   attention kernels round P before P.V. Rows are padded to 16;
+// - fp32: FMA on the CUDA cores (TF32 would miss the fp32 limit), each
+//   thread a 4 x 4 register tile per output, operands read as float4, h
+//   kept in fp32.
+// Limit: the h of one row tile, (bm, F), stays in shared memory, so F is
+// bounded (the wrapper's plan says so before a launch; F = 512 here).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include <type_traits>
+
+#include "../sm90.cuh"
 
 namespace {
 
+using namespace sm90;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kSlice = 64;                 // F columns of one phase-A pass
-constexpr int kKSplit = kWarps / 2;        // warps that split D per column
-constexpr int kChunkD = 512;               // x columns staged at a time
-constexpr int kKPerWarp = kChunkD / kKSplit;
-constexpr int kDownCols = 2 * kThreads;    // output columns per phase-B pass
-constexpr int kMaxHFloats = 16384;         // h tile: 64 KB of shared memory
-constexpr long long kTargetBlocks = 2 * 132;
-constexpr size_t kMaxSmem = 232448;        // per block, sm_90
+constexpr int kStages = 4;       // ring of staged depth chunks
+constexpr int kPassA = 128;      // F columns of one gate/up pass
+constexpr int kPassB = 256;      // D columns of one down-projection pass
+constexpr int kMaxCluster = 8;   // portable cluster size
+constexpr size_t kMaxSmem = 232448;  // per block, sm_90
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Two neighbouring elements; `vec` when the pair is aligned (D even).
-__device__ __forceinline__ float2 load2(const float* p, bool ok0, bool ok1,
-                                       bool vec) {
-  if (vec) return ok0 ? *reinterpret_cast<const float2*>(p)
-                      : make_float2(0.f, 0.f);
-  return make_float2(ok0 ? p[0] : 0.f, ok1 ? p[1] : 0.f);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, bool ok0,
-                                       bool ok1, bool vec) {
-  if (vec) return ok0 ? __bfloat1622float2(
-                            *reinterpret_cast<const __nv_bfloat162*>(p))
-                      : make_float2(0.f, 0.f);
-  return make_float2(ok0 ? to_f(p[0]) : 0.f, ok1 ? to_f(p[1]) : 0.f);
-}
-
-// How a launch is cut: BC capacity rows per tile (nc tiles), fw F columns
-// per block (nf ranges). Host code; the wrapper sizes its scratch from it.
-struct Plan {
-  int bc, nc, fw, nf;
+// Tile geometry of a dtype. BK: depth of a staged chunk (64 bytes of an x
+// row). PAD: elements added to every shared-memory row, so that a row
+// stride is an odd number of 16-byte groups and the 8 rows of an ldmatrix
+// (or 8 lanes of a float4 phase) hit 8 different bank groups.
+template <typename T>
+struct Geo;
+template <>
+struct Geo<bf16> {
+  static constexpr int BK = 32, PAD = 8;
+};
+template <>
+struct Geo<float> {
+  static constexpr int BK = 16, PAD = 4;
 };
 
-Plan make_plan(int G, int E, int C, int F) {
-  Plan p;
-  p.bc = C <= 4 ? 4 : C <= 8 ? 8 : C <= 16 ? 16 : 32;
-  p.nc = (C + p.bc - 1) / p.bc;
-  const long long tiles = (long long)G * E * p.nc;
-  const int slices = (F + kSlice - 1) / kSlice;
-  const int max_per = std::max(1, kMaxHFloats / p.bc / kSlice);
-  long long nf = (kTargetBlocks + tiles - 1) / tiles;
-  nf = std::max<long long>(nf, (slices + max_per - 1) / max_per);
-  nf = std::min<long long>(std::max<long long>(nf, 1), slices);
-  const int per = (slices + (int)nf - 1) / (int)nf;  // slices per block
-  p.fw = per * kSlice;
-  p.nf = (F + p.fw - 1) / p.fw;
-  return p;
-}
-
-size_t smem_bytes(const Plan& p) {
-  return sizeof(float) * ((size_t)p.bc * kChunkD + 2 * (size_t)p.bc * kSlice +
-                          (size_t)p.fw * p.bc);
-}
+// Shared memory of a block: bm row offsets, kStages stages of [sX (bm,
+// LDX) | sWg, sWu (BK, LDA) each, or sWd (BK, LDB)], then h (bm, ldh). The
+// wrapper's plan (ops.py) mirrors bytes().
+template <typename T>
+struct Smem {
+  static constexpr int BK = Geo<T>::BK, PAD = Geo<T>::PAD;
+  static constexpr int LDX = BK + PAD;
+  static constexpr int LDA = kPassA + PAD;
+  static constexpr int LDB = kPassB + PAD;
+  static constexpr int W = 2 * BK * LDA > BK * LDB ? 2 * BK * LDA : BK * LDB;
+  // depth of the down-projection: F rounded up to BK
+  __host__ __device__ static int kf(int F) { return (F + BK - 1) / BK * BK; }
+  __host__ __device__ static int ldh(int F) { return (F + 31) / 32 * 32 + PAD; }
+  __host__ __device__ static int stage(int bm) { return bm * LDX + W; }
+  static size_t bytes(int bm, int F) {
+    return sizeof(long long) * bm +
+           sizeof(T) * ((size_t)kStages * stage(bm) + (size_t)bm * ldh(F));
+  }
+};
 
 template <typename T>
 struct Args {
@@ -120,216 +109,452 @@ struct Args {
   const T* wg;
   const T* wu;
   const T* wd;
-  T* out;          // (G, E, C, D)
-  float* scratch;  // (nf, G, E, C, D) when nf > 1
-  int G, E, C, D, F, fw, nf;
-  bool wd_pairs;   // Wd read two elements at a time (D even, aligned)
+  T* out;
+  int G, E, C, D, F;
+  int fr, dr;  // F and D columns per block of a cluster
+  bool vec;    // 16-byte copies (D, F and the pointers allow them)
 };
 
-template <typename T, int BC>
-__global__ void __launch_bounds__(kThreads) moe_ffn_kernel(const Args<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  float* sX = smem;                  // [BC][kChunkD]   x tile, fp32
-  float* sG = sX + BC * kChunkD;     // [BC][kSlice]    gate sums
-  float* sU = sG + BC * kSlice;      // [BC][kSlice]    up sums
-  float* sH = sU + BC * kSlice;      // [fw][BC]        h = silu(g) * u
+// Stage a (rows, COLS) tile into dst (row stride ld): element (r, c) from
+// src(r) + c, zero where src(r) is null or c >= valid. With vec, 16-byte
+// cp.async (COLS and valid are multiples of 16 bytes); else plain loads.
+template <typename T, int COLS, typename Src>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, int rows,
+                                           int valid, bool vec,
+                                           const T* any, Src src) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T), PER = COLS / V;
+    for (int i = threadIdx.x; i < rows * PER; i += kThreads) {
+      const int r = i / PER, c = (i % PER) * V;
+      const T* s = src(r);
+      const bool ok = s != nullptr && c < valid;
+      cp_async<16>(dst + r * ld + c, ok ? s + c : any, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * COLS; i += kThreads) {
+      const int r = i / COLS, c = i % COLS;
+      const T* s = src(r);
+      dst[r * ld + c] = (s != nullptr && c < valid) ? s[c] : zero_of<T>();
+    }
+  }
+}
 
-  const int D = a.D, F = a.F;
-  const int ge = blockIdx.x, e = ge % a.E;
-  const int c0 = blockIdx.y * BC;
-  const int rows = min(BC, a.C - c0);
-  const int f0 = blockIdx.z * a.fw;
-  const int fn = min(a.fw, F - f0);
-  const T* x = a.x + ((size_t)ge * a.C + c0) * D;
-  const T* wg = a.wg + (size_t)e * D * F;
-  const T* wu = a.wu + (size_t)e * D * F;
-  const T* wd = a.wd + (size_t)e * F * D + (size_t)f0 * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int colw = (warp & 1) * 32 + lane;  // column within the slice
-  const int kq = warp >> 1;                 // which part of D
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  return g / (1.f + expf(-g)) * u;
+}
 
-  // ---- phase A: h for the block's F columns, 64 at a time, into sH
-  for (int s0 = 0; s0 < fn; s0 += kSlice) {
-    const bool col_ok = s0 + colw < fn;
-    const int col = f0 + s0 + colw;
-    float ag[BC], au[BC];
+__device__ __forceinline__ float at(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// ---- bf16: tensor cores. Warp w owns columns [16w, 16w + 16) of a
+// gate/up pass (two n-tiles of 8 per product) and [32w, 32w + 32) of a
+// down-projection pass (four n-tiles), all rows.
+
+template <int MT>
+__device__ __forceinline__ void tc_a(float (&g)[MT][2][4],
+                                     float (&u)[MT][2][4], const bf16* sX,
+                                     const bf16* sWg, const bf16* sWu) {
+  using S = Smem<bf16>;
+  const int w = threadIdx.x >> 5;
 #pragma unroll
-    for (int r = 0; r < BC; ++r) ag[r] = au[r] = 0.f;
-    for (int kc = 0; kc < D; kc += kChunkD) {
-      const int kw = min(kChunkD, D - kc);
-      __syncthreads();  // the last readers of sX are done
-      for (int i = threadIdx.x; i < BC * kChunkD; i += kThreads) {
-        const int r = i / kChunkD, k = i - r * kChunkD;
-        sX[i] = (r < rows && k < kw) ? to_f(x[(size_t)r * D + kc + k]) : 0.f;
+  for (int kk = 0; kk < S::BK / 16; ++kk) {
+    uint32_t av[MT][4], bg[4], bu[4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(av[mt], sX + (16 * mt + a_row()) * S::LDX + kk * 16 + a_col());
+    ldsm_x4_t(bg, sWg + (kk * 16 + v_row()) * S::LDA + w * 16 + v_col());
+    ldsm_x4_t(bu, sWu + (kk * 16 + v_row()) * S::LDA + w * 16 + v_col());
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(g[mt][0], av[mt], bg[0], bg[1]);
+      mma_bf16(g[mt][1], av[mt], bg[2], bg[3]);
+      mma_bf16(u[mt][0], av[mt], bu[0], bu[1]);
+      mma_bf16(u[mt][1], av[mt], bu[2], bu[3]);
+    }
+  }
+}
+
+// h = silu(g) * u of the pass at column col0 into sH (bf16), columns < kf.
+template <int MT>
+__device__ __forceinline__ void tc_a_done(float (&g)[MT][2][4],
+                                          float (&u)[MT][2][4], bf16* sH,
+                                          int ldh, int col0, int kf) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = col0 + w * 16 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = 16 * mt + (lane >> 2) + 8 * hi;
+        if (col < kf)
+          *reinterpret_cast<uint32_t*>(sH + row * ldh + col) =
+              pack_bf16(silu_mul(g[mt][j][2 * hi], u[mt][j][2 * hi]),
+                        silu_mul(g[mt][j][2 * hi + 1], u[mt][j][2 * hi + 1]));
+        g[mt][j][2 * hi] = g[mt][j][2 * hi + 1] = 0.f;
+        u[mt][j][2 * hi] = u[mt][j][2 * hi + 1] = 0.f;
       }
-      __syncthreads();
-      const int kb = kq * kKPerWarp;
-      const int kend = min(kKPerWarp, kw - kb);
-      const T* pg = wg + (size_t)(kc + kb) * F + col;
-      const T* pu = wu + (size_t)(kc + kb) * F + col;
-#pragma unroll 2
-      for (int kk = 0; kk < kend; kk += 4) {
-        float g4[4], u4[4];
+    }
+}
+
+template <int MT>
+__device__ __forceinline__ void tc_b(float (&o)[MT][4][4], const bf16* sH,
+                                     int ldh, int k0, const bf16* sWd) {
+  using S = Smem<bf16>;
+  const int c0 = (threadIdx.x >> 5) * 32;
+#pragma unroll
+  for (int kk = 0; kk < S::BK / 16; ++kk) {
+    uint32_t av[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(av[mt], sH + (16 * mt + a_row()) * ldh + k0 + kk * 16 + a_col());
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, sWd + (kk * 16 + v_row()) * S::LDB + c0 + np * 16 + v_col());
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(o[mt][2 * np], av[mt], b[0], b[1]);
+        mma_bf16(o[mt][2 * np + 1], av[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void tc_b_done(float (&o)[MT][4][4], bf16* out,
+                                          const long long* sRow, int rows,
+                                          int col0, int D) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = 16 * mt + (lane >> 2) + 8 * hi;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + w * 32 + 8 * j + 2 * (lane & 3);
+        if (row < rows) {
+          bf16* p = out + sRow[row] + col;
+          if (col < D) store_f(p, o[mt][j][2 * hi]);
+          if (col + 1 < D) store_f(p + 1, o[mt][j][2 * hi + 1]);
+        }
+        o[mt][j][2 * hi] = o[mt][j][2 * hi + 1] = 0.f;
+      }
+    }
+}
+
+// ---- fp32: CUDA cores. Thread (ty =
+// warp, tx = lane) owns rows 4ty..4ty+3 and columns 4tx..4tx+3 of a gate/up
+// pass (both products), and columns 4tx..4tx+3 and 128+4tx..128+4tx+3 of
+// a down-projection pass.
+
+__device__ __forceinline__ void fma_a(float (&g)[4][4], float (&u)[4][4],
+                                      const float* sX, const float* sWg,
+                                      const float* sWu) {
+  using S = Smem<float>;
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+#pragma unroll
+  for (int k4 = 0; k4 < S::BK; k4 += 4) {
+    float4 xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(sX + (4 * ty + i) * S::LDX + k4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 wg =
+          *reinterpret_cast<const float4*>(sWg + (k4 + kk) * S::LDA + 4 * tx);
+      const float4 wu =
+          *reinterpret_cast<const float4*>(sWu + (k4 + kk) * S::LDA + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xs = at(xv[i], kk);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const bool ok = col_ok && kk + j < kend;
-          g4[j] = ok ? to_f(pg[(size_t)(kk + j) * F]) : 0.f;
-          u4[j] = ok ? to_f(pu[(size_t)(kk + j) * F]) : 0.f;
+          g[i][j] = fmaf(xs, at(wg, j), g[i][j]);
+          u[i][j] = fmaf(xs, at(wu, j), u[i][j]);
         }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void fma_a_done(float (&g)[4][4], float (&u)[4][4],
+                                           float* sH, int ldh, int col0,
+                                           int kf) {
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int col = col0 + 4 * tx;
 #pragma unroll
-        for (int r = 0; r < BC; ++r) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(sX + r * kChunkD + kb + kk);
-          ag[r] = fmaf(xv.x, g4[0], ag[r]);
-          ag[r] = fmaf(xv.y, g4[1], ag[r]);
-          ag[r] = fmaf(xv.z, g4[2], ag[r]);
-          ag[r] = fmaf(xv.w, g4[3], ag[r]);
-          au[r] = fmaf(xv.x, u4[0], au[r]);
-          au[r] = fmaf(xv.y, u4[1], au[r]);
-          au[r] = fmaf(xv.z, u4[2], au[r]);
-          au[r] = fmaf(xv.w, u4[3], au[r]);
-        }
-      }
-    }
-    // the kKSplit parts of D, added in the fixed order kq = 0, 1, ...
-    for (int q = 0; q < kKSplit; ++q) {
-      __syncthreads();  // q = 0: the last slice's readers of sG/sU are done
-      if (kq == q) {
+  for (int i = 0; i < 4; ++i) {
+    if (col < kf)
+      *reinterpret_cast<float4*>(sH + (4 * ty + i) * ldh + col) = make_float4(
+          silu_mul(g[i][0], u[i][0]), silu_mul(g[i][1], u[i][1]),
+          silu_mul(g[i][2], u[i][2]), silu_mul(g[i][3], u[i][3]));
 #pragma unroll
-        for (int r = 0; r < BC; ++r) {
-          const int i = r * kSlice + colw;
-          sG[i] = q == 0 ? ag[r] : sG[i] + ag[r];
-          sU[i] = q == 0 ? au[r] : sU[i] + au[r];
+    for (int j = 0; j < 4; ++j) g[i][j] = u[i][j] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void fma_b(float (&o)[4][8], const float* sH,
+                                      int ldh, int k0, const float* sWd) {
+  using S = Smem<float>;
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+#pragma unroll
+  for (int k4 = 0; k4 < S::BK; k4 += 4) {
+    float4 hv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hv[i] = *reinterpret_cast<const float4*>(sH + (4 * ty + i) * ldh + k0 +
+                                               k4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* wrow = sWd + (k4 + kk) * S::LDB + 4 * tx;
+      const float4 w0 = *reinterpret_cast<const float4*>(wrow);
+      const float4 w1 = *reinterpret_cast<const float4*>(wrow + kPassB / 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float hs = at(hv[i], kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o[i][j] = fmaf(hs, at(w0, j), o[i][j]);
+          o[i][4 + j] = fmaf(hs, at(w1, j), o[i][4 + j]);
         }
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BC * kSlice; i += kThreads) {
-      const int r = i / kSlice, j = i - r * kSlice;
-      if (s0 + j < fn) {
-        const float g = sG[i];
-        sH[(s0 + j) * BC + r] = g / (1.f + expf(-g)) * sU[i];
-      }
+  }
+}
+
+__device__ __forceinline__ void fma_b_done(float (&o)[4][8], float* out,
+                                           const long long* sRow, int rows,
+                                           int col0, int D) {
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + 4 * tx + (j & 3) + (j >> 2) * (kPassB / 2);
+      if (row < rows && col < D) out[sRow[row] + col] = o[i][j];
+      o[i][j] = 0.f;
     }
+  }
+}
+
+// One block: rank r of the cluster of (row tile blockIdx.y, expert
+// blockIdx.z). MT: 16-row tiles of a bf16 block (fp32 blocks hold 32 rows).
+template <typename T, int MT>
+__global__ void __launch_bounds__(kThreads, 2)
+    moe_ffn_kernel(const Args<T> a) {
+  using S = Smem<T>;
+  constexpr bool kTc = std::is_same<T, bf16>::value;
+  constexpr int BM = kTc ? 16 * MT : 32;
+  constexpr int BK = S::BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* sRow = reinterpret_cast<long long*>(smem_raw);
+  T* sStage = reinterpret_cast<T*>(smem_raw + sizeof(long long) * BM);
+  T* sH = sStage + kStages * S::stage(BM);
+  const int ldh = S::ldh(a.F), kf = S::kf(a.F);
+
+  const int rank = blockIdx.x, nf = gridDim.x, e = blockIdx.z;
+  const int m0 = blockIdx.y * BM;
+  const int rows = min(BM, a.G * a.C - m0);
+  // the tile's rows: row m = g*C + c of expert e, -1 past the last
+  for (int r = threadIdx.x; r < BM; r += kThreads) {
+    long long off = -1;
+    if (r < rows) {
+      const int m = m0 + r, g = m / a.C, c = m - g * a.C;
+      off = ((long long)(g * a.E + e) * a.C + c) * a.D;
+    }
+    sRow[r] = off;
   }
   __syncthreads();
 
-  // ---- phase B: the partial down-projection of the block's F columns
-  const bool vec = a.wd_pairs;
-  const size_t plane = (size_t)a.G * a.E * a.C * D;
-  for (int d0 = 0; d0 < D; d0 += kDownCols) {
-    const int d = d0 + 2 * threadIdx.x;
-    const bool ok0 = d < D, ok1 = d + 1 < D;
-    float acc[BC][2];
-#pragma unroll
-    for (int r = 0; r < BC; ++r) acc[r][0] = acc[r][1] = 0.f;
-#pragma unroll 4
-    for (int f = 0; f < fn; ++f) {
-      const float2 w = load2(wd + (size_t)f * D + d, ok0, ok1, vec);
-      const float* hf = sH + f * BC;
-#pragma unroll
-      for (int r = 0; r < BC; r += 4) {
-        const float4 h4 = *reinterpret_cast<const float4*>(hf + r);
-        acc[r][0] = fmaf(h4.x, w.x, acc[r][0]);
-        acc[r][1] = fmaf(h4.x, w.y, acc[r][1]);
-        acc[r + 1][0] = fmaf(h4.y, w.x, acc[r + 1][0]);
-        acc[r + 1][1] = fmaf(h4.y, w.y, acc[r + 1][1]);
-        acc[r + 2][0] = fmaf(h4.z, w.x, acc[r + 2][0]);
-        acc[r + 2][1] = fmaf(h4.z, w.y, acc[r + 2][1]);
-        acc[r + 3][0] = fmaf(h4.w, w.x, acc[r + 3][0]);
-        acc[r + 3][1] = fmaf(h4.w, w.y, acc[r + 3][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BC; ++r) {
-      if (r >= rows) break;
-      const size_t o = ((size_t)ge * a.C + c0 + r) * D + d;
-      if (a.nf == 1) {
-        if (ok0) store_f(a.out + o, acc[r][0]);
-        if (ok1) store_f(a.out + o + 1, acc[r][1]);
+  const int D = a.D, F = a.F;
+  const int f0 = rank * a.fr, d0 = rank * a.dr;
+  const int npa = (max(0, min(a.fr, F - f0)) + kPassA - 1) / kPassA;
+  const int npb = (max(0, min(a.dr, D - d0)) + kPassB - 1) / kPassB;
+  const int nka = (D + BK - 1) / BK, nkb = kf / BK;
+  const int na = npa * nka, n = na + npb * nkb;
+  const T* wg = a.wg + (size_t)e * D * F;
+  const T* wu = a.wu + (size_t)e * D * F;
+  const T* wd = a.wd + (size_t)e * F * D;
+
+  // issue the copies of depth chunk i (gate/up chunks, then down chunks)
+  auto issue = [&](int i) {
+    if (i < n) {
+      T* st = sStage + (i % kStages) * S::stage(BM);
+      if (i < na) {
+        const int k0 = (i % nka) * BK, fc = f0 + (i / nka) * kPassA;
+        stage_tile<T, BK>(st, S::LDX, BM, D - k0, a.vec, wg,
+                          [&](int r) -> const T* {
+                            return sRow[r] < 0 ? nullptr : a.x + sRow[r] + k0;
+                          });
+        T* sw = st + BM * S::LDX;
+        stage_tile<T, kPassA>(sw, S::LDA, BK, F - fc, a.vec, wg,
+                          [&](int r) -> const T* {
+                            return k0 + r < D ? wg + (size_t)(k0 + r) * F + fc
+                                              : nullptr;
+                          });
+        stage_tile<T, kPassA>(sw + BK * S::LDA, S::LDA, BK, F - fc, a.vec, wg,
+                          [&](int r) -> const T* {
+                            return k0 + r < D ? wu + (size_t)(k0 + r) * F + fc
+                                              : nullptr;
+                          });
       } else {
-        float* s = a.scratch + blockIdx.z * plane + o;
-        if (ok0) s[0] = acc[r][0];
-        if (ok1) s[1] = acc[r][1];
+        const int j = i - na, k0 = (j % nkb) * BK;
+        const int dc = d0 + (j / nkb) * kPassB;
+        stage_tile<T, kPassB>(st + BM * S::LDX, S::LDB, BK, D - dc, a.vec, wg,
+                          [&](int r) -> const T* {
+                            return k0 + r < F ? wd + (size_t)(k0 + r) * D + dc
+                                              : nullptr;
+                          });
       }
     }
+    cp_async_commit();
+  };
+  // wait for chunk i, then refill the stage that chunk i - 1 used
+  auto next = [&](int i) -> const T* {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(i + kStages - 1);
+    return sStage + (i % kStages) * S::stage(BM);
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // ---- gate and up for the block's F columns, h into sH
+  if constexpr (kTc) {
+    float g[MT][2][4] = {}, u[MT][2][4] = {};
+    for (int i = 0; i < na; ++i) {
+      const T* st = next(i);
+      const T* sw = st + BM * S::LDX;
+      tc_a<MT>(g, u, st, sw, sw + BK * S::LDA);
+      if (i % nka == nka - 1)
+        tc_a_done<MT>(g, u, sH, ldh, f0 + (i / nka) * kPassA, kf);
+    }
+  } else {
+    float g[4][4] = {}, u[4][4] = {};
+    for (int i = 0; i < na; ++i) {
+      const T* st = next(i);
+      const T* sw = st + BM * S::LDX;
+      fma_a(g, u, st, sw, sw + BK * S::LDA);
+      if (i % nka == nka - 1)
+        fma_a_done(g, u, sH, ldh, f0 + (i / nka) * kPassA, kf);
+    }
   }
+
+  // ---- every block copies its peers' parts of h (distributed shared
+  // memory); then none may leave before all have copied (the final wait)
+  cluster_arrive();
+  cluster_wait();
+  constexpr int V = 16 / sizeof(T);
+  for (int q = 0; q < nf; ++q) {
+    const int c0 = q * a.fr, c1 = min(kf, c0 + a.fr);
+    if (q == rank || c1 <= c0) continue;
+    const int per = (c1 - c0) / V;
+    for (int i = threadIdx.x; i < BM * per; i += kThreads) {
+      const int r = i / per;
+      T* p = sH + r * ldh + c0 + (i - r * per) * V;
+      *reinterpret_cast<uint4*>(p) = ld_peer16(peer_addr(p, q));
+    }
+  }
+  __syncthreads();
+  cluster_arrive();
+
+  // ---- the block's D columns, summed over all of F
+  if constexpr (kTc) {
+    float o[MT][4][4] = {};
+    for (int i = na; i < n; ++i) {
+      const int j = i - na;
+      const T* st = next(i);
+      tc_b<MT>(o, sH, ldh, (j % nkb) * BK, st + BM * S::LDX);
+      if (j % nkb == nkb - 1)
+        tc_b_done<MT>(o, a.out, sRow, rows, d0 + (j / nkb) * kPassB, D);
+    }
+  } else {
+    float o[4][8] = {};
+    for (int i = na; i < n; ++i) {
+      const int j = i - na;
+      const T* st = next(i);
+      fma_b(o, sH, ldh, (j % nkb) * BK, st + BM * S::LDX);
+      if (j % nkb == nkb - 1)
+        fma_b_done(o, a.out, sRow, rows, d0 + (j / nkb) * kPassB, D);
+    }
+  }
+  cp_async_wait<0>();
+  cluster_wait();
 }
 
-// out[i] = sum of the nf partials of element i, in the order of the ranges.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    moe_ffn_sum(const float* __restrict__ scratch, T* __restrict__ out,
-                long long n, int nf) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int j = 0; j < nf; ++j) s += scratch[(size_t)j * n + i];
-    store_f(out + i, s);
-  }
-}
-
-template <typename T, int BC>
-int launch(const Args<T>& a, const Plan& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p);
+template <typename T, int MT>
+int launch(const Args<T>& a, int nf, cudaStream_t stream) {
+  constexpr int BM = std::is_same<T, bf16>::value ? 16 * MT : 32;
+  const size_t smem = Smem<T>::bytes(BM, a.F);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = moe_ffn_kernel<T, BC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = moe_ffn_kernel<T, MT>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(a.G * a.E, p.nc, p.nf), kThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.nf == 1) return (int)err;
-  const long long n = (long long)a.G * a.E * a.C * a.D;
-  const long long blocks =
-      std::min<long long>((n + kThreads - 1) / kThreads, 8 * 132);
-  moe_ffn_sum<T><<<(int)blocks, kThreads, 0, stream>>>(a.scratch, a.out, n,
-                                                       p.nf);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nf, (a.G * a.C + BM - 1) / BM, a.E);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nf;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, const void* wg, const void* wu, const void* wd,
-             void* out, void* scratch, int G, int E, int C, int D, int F,
-             cudaStream_t stream) {
-  const Plan p = make_plan(G, E, C, F);
-  if (p.nf > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const bool wd_pairs = D % 2 == 0 && (uintptr_t)wd % (2 * sizeof(T)) == 0;
-  const Args<T> a{(const T*)x, (const T*)wg,  (const T*)wu,
-                  (const T*)wd, (T*)out,      (float*)scratch,
-                  G, E, C, D, F, p.fw, p.nf, wd_pairs};
-  switch (p.bc) {
-    case 4: return launch<T, 4>(a, p, stream);
-    case 8: return launch<T, 8>(a, p, stream);
-    case 16: return launch<T, 16>(a, p, stream);
-    default: return launch<T, 32>(a, p, stream);
+             void* out, int G, int E, int C, int D, int F, int nf, int fr,
+             int dr, int bm, cudaStream_t stream) {
+  const int es = (int)sizeof(T);
+  bool vec = (D * es) % 16 == 0 && (F * es) % 16 == 0;
+  for (const void* p : {x, wg, wu, wd}) vec = vec && (uintptr_t)p % 16 == 0;
+  const Args<T> a{(const T*)x, (const T*)wg, (const T*)wu, (const T*)wd,
+                  (T*)out,     G, E, C, D, F, fr, dr, vec};
+  if constexpr (std::is_same<T, float>::value) {
+    if (bm != 32) return (int)cudaErrorInvalidValue;
+    return launch<float, 2>(a, nf, stream);
+  } else {
+    if (bm == 16) return launch<bf16, 1>(a, nf, stream);
+    if (bm == 32) return launch<bf16, 2>(a, nf, stream);
+    return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// fp32 elements of scratch a launch of these sizes needs (0: none).
-extern "C" long long moe_ffn_workspace(int G, int E, int C, int D, int F) {
-  if (G <= 0 || E <= 0 || C <= 0 || D <= 0 || F <= 0) return 0;
-  const Plan p = make_plan(G, E, C, F);
-  return p.nf > 1 ? (long long)p.nf * G * E * C * D : 0;
-}
-
 // x (G,E,C,D), wg/wu (E,D,F), wd (E,F,D), out (G,E,C,D), all contiguous
-// and of one dtype (0 = float32, 1 = bfloat16); scratch holds
-// moe_ffn_workspace(...) floats. Launches on `stream` and returns the CUDA
-// error code (0 = ok).
+// and of one dtype (0 = float32, 1 = bfloat16). The plan (ops.py::plan):
+// clusters of nf blocks, block r owning F columns [r*fr, (r+1)*fr) and D
+// columns [r*dr, (r+1)*dr) (multiples of 128 and 256); tiles of bm
+// capacity rows (16 or 32 in bf16, 32 in fp32). Launches on `stream` and
+// returns the CUDA error code (0 = ok).
 extern "C" int moe_ffn_launch(const void* x, const void* wg, const void* wu,
-                              const void* wd, void* out, void* scratch, int G,
-                              int E, int C, int D, int F, int dtype,
-                              void* stream) {
-  if (G <= 0 || E <= 0 || C <= 0 || D <= 0 || F <= 0 || C > 65535 * 32)
+                              const void* wd, void* out, int G, int E, int C,
+                              int D, int F, int dtype, int nf, int fr, int dr,
+                              int bm, void* stream) {
+  if (G <= 0 || E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 ||
+      nf < 1 || nf > kMaxCluster || fr <= 0 || fr % kPassA != 0 ||
+      dr <= 0 || dr % kPassB != 0 || (long long)nf * fr < F ||
+      (long long)nf * dr < D || bm <= 0 ||
+      ((long long)G * C + bm - 1) / bm > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch<float>(x, wg, wu, wd, out, scratch, G, E, C, D, F, s);
+    return dispatch<float>(x, wg, wu, wd, out, G, E, C, D, F, nf, fr, dr, bm,
+                           s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, wg, wu, wd, out, scratch, G, E, C, D,
-                                   F, s);
+    return dispatch<bf16>(x, wg, wu, wd, out, G, E, C, D, F, nf, fr, dr, bm,
+                          s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,7 @@ launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,18 +22,86 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+# The launch geometry, mirrored from moe_ffn.cu: F columns of a gate/up
+# pass, D columns of a down-projection pass, the largest portable cluster,
+# the staged depth chunks, and per dtype the chunk depth, the row padding
+# and the capacity-row tiles the kernel is built for.
+PASS_F = 128
+PASS_D = 256
+MAX_CLUSTER = 8
+STAGES = 4
+MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+_GEOMETRY = {torch.float32: (16, 4, (32,)),
+             torch.bfloat16: (32, 8, (16, 32))}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call is cut: clusters of ``nf`` blocks per (expert, row
+    tile); block r computes h for F columns ``[r*fr, (r+1)*fr)`` and the
+    output for D columns ``[r*dr, (r+1)*dr)``; ``nm`` tiles of ``bm`` rows
+    cover the expert's ``G*C`` capacity rows across all groups; ``smem``
+    bytes of shared memory a block."""
+    nf: int
+    fr: int
+    dr: int
+    bm: int
+    nm: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        """Blocks per expert."""
+        return self.nf * self.nm
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_bytes(bm: int, f: int, dtype: torch.dtype) -> int:
+    bk, pad, _ = _GEOMETRY[dtype]
+    esize = torch.empty((), dtype=dtype).element_size()
+    w = max(2 * bk * (PASS_F + pad), bk * (PASS_D + pad))
+    ldh = _cdiv(f, 32) * 32 + pad
+    return 8 * bm + esize * (STAGES * (bm * (bk + pad) + w) + bm * ldh)
+
+
+def plan(g: int, e: int, c: int, d: int, f: int, dtype: torch.dtype) -> Plan:
+    """The launch geometry of one call, from the shapes alone: F cut into
+    ranges of whole gate/up passes, one block each (at most
+    ``MAX_CLUSTER``), the same blocks cutting D into whole passes; the
+    smallest row tile that holds all ``G*C`` rows, else the largest the
+    kernel has that fits in shared memory with the h of its rows. Raises
+    ``ValueError`` when even the smallest tile's h does not fit (F too
+    wide). At the serving shapes (E=32, D=1024, F=512): 4 blocks an expert,
+    128 blocks."""
+    _, _, tiles = _GEOMETRY[dtype]
+    m = g * c
+    nf = min(MAX_CLUSTER, _cdiv(f, PASS_F))
+    fr = PASS_F * _cdiv(_cdiv(f, nf), PASS_F)
+    nf = _cdiv(f, fr)
+    dr = PASS_D * _cdiv(_cdiv(d, nf), PASS_D)
+    fits = [t for t in tiles if _smem_bytes(t, f, dtype) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(
+            f"moe_ffn: expert width F={f} needs "
+            f"{_smem_bytes(tiles[0], f, dtype)} bytes of shared memory a "
+            f"block for h, beyond the {MAX_SMEM} an H100 block may use")
+    bm = next((t for t in fits if m <= t), fits[-1])
+    return Plan(nf, fr, dr, bm, _cdiv(m, bm), _smem_bytes(bm, f, dtype))
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The kernel's C entry points, built and loaded at first use."""
-    lib = _build.load("moe_ffn")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.moe_ffn_workspace.argtypes = [i, i, i, i, i]
-    lib.moe_ffn_workspace.restype = ll
-    lib.moe_ffn_launch.argtypes = [p, p, p, p, p, p,   # x, wg, wu, wd, out,
-                                   i, i, i, i, i,      # scratch; G E C D F
-                                   i, p]               # dtype, stream
-    lib.moe_ffn_launch.restype = i
-    return lib
+def _launch_fn():
+    """The kernel's C entry point, built and loaded at first use."""
+    fn = _build.load("moe_ffn").moe_ffn_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p,        # x, wg, wu, wd, out
+                   i, i, i, i, i, i,     # G E C D F, dtype
+                   i, i, i, i, p]        # nf fr dr bm (the plan), stream
+    fn.restype = i
+    return fn
 
 
 def expert_ffn(
@@ -46,8 +115,8 @@ def expert_ffn(
 ) -> torch.Tensor:
     """``(silu(x @ Wg_e) * (x @ Wu_e)) @ Wd_e`` per expert, summed in fp32,
     in x's dtype. ``block_c``/``block_f`` are the JAX wrapper's tile knobs,
-    validated as it validates them; the Hopper kernel picks its own tiles
-    and masks the ragged edges of C and F itself."""
+    validated as it validates them; the Hopper kernel's tiles come from
+    ``plan`` and it masks the ragged edges of C, D and F itself."""
     global launches
     g, e, c, d = x.shape
     f = w_gate.shape[-1]
@@ -76,16 +145,13 @@ def expert_ffn(
         raise ValueError("moe_ffn: x and the weights must share a device")
     if not (x.is_contiguous() and all(w.is_contiguous() for w in ws)):
         raise ValueError("moe_ffn: x and the weights must be contiguous")
+    pl = plan(g, e, c, d, f, x.dtype)
     out = torch.empty_like(x)
-    lib = _lib()
-    n_scratch = lib.moe_ffn_workspace(g, e, c, d, f)
-    scratch = torch.empty((max(n_scratch, 0),), dtype=torch.float32,
-                          device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.moe_ffn_launch(
+    err = _launch_fn()(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        out.data_ptr(), scratch.data_ptr() if n_scratch > 0 else None,
-        g, e, c, d, f, _DTYPE_CODES[x.dtype], stream)
+        out.data_ptr(), g, e, c, d, f, _DTYPE_CODES[x.dtype], pl.nf, pl.fr,
+        pl.dr, pl.bm, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn: kernel launch failed with CUDA error "
                            f"{err}")

@@ -1,4 +1,5 @@
-"""The port's attention kernels on the CPU, held against the JAX package.
+"""The port's attention kernels on the CPU, held against the JAX package,
+and the launch geometry of every kernel.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 them against their plain versions there). Here, on the same numpy inputs
@@ -8,7 +9,10 @@ and the case tables of ``tests/test_kernels.py``:
   oracle and the JAX Pallas op in interpret mode, at the JAX tolerances
   (2e-5 fp32, 2e-2 bf16);
 - each wrapper raises the JAX wrapper's call-time ``ValueError``s;
-- a CPU tensor takes the plain version and the launch counter stays 0.
+- a CPU tensor takes the plain version and the launch counter stays 0;
+- each wrapper's launch plan (cache splits, cluster, row tiles) is a
+  function of the shapes that covers them exactly and fills
+  at least half a wave of the H100's 132 SMs at the serving shapes.
 """
 
 import jax.numpy as jnp
@@ -25,6 +29,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import decode_ref
+from repro_torch.kernels.moe_ffn import ops as moe_ops
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _pair(rng, shape, dtype):
@@ -220,3 +227,42 @@ def test_library_path_changes_with_every_included_header(tmp_path,
     assert users == {"flash_attention", "flash_decode"}
     for name in _build.KERNELS:
         assert (before[name] != after[name]) == (name in users)
+
+
+# (G, E, C, D, F): granite-moe-1b's decode tick and prefill buckets, its
+# 4096-token case, and the CPU tests' expert-FFN table with an odd width
+MOE_PLAN_CASES = [
+    (1, 32, 4, 1024, 512), (1, 32, 10, 1024, 512), (1, 32, 20, 1024, 512),
+    (1, 32, 30, 1024, 512), (8, 32, 160, 1024, 512), (2, 4, 16, 64, 128),
+    (1, 8, 100, 32, 300), (1, 2, 8, 16, 48), (1, 3, 7, 33, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,e,c,d,f", MOE_PLAN_CASES)
+def test_moe_plan_covers_the_shapes(g, e, c, d, f, dtype):
+    """The expert FFN's plan: every block of a cluster owns F columns (whole
+    gate/up passes) and the cluster covers F and D exactly; the row tiles
+    cover the G*C capacity rows of an expert exactly; the block fits in
+    shared memory; the plan takes shapes only and repeats itself; and at
+    granite's serving shapes (G=1, C <= 30) one tile holds every row, so
+    each weight byte is read once, over at least half a wave of SMs."""
+    pl = moe_ops.plan(g, e, c, d, f, dtype)
+    assert pl == moe_ops.plan(g, e, c, d, f, dtype)
+    assert 1 <= pl.nf <= moe_ops.MAX_CLUSTER
+    assert pl.fr % moe_ops.PASS_F == 0 and pl.dr % moe_ops.PASS_D == 0
+    assert pl.nf * pl.fr >= f > (pl.nf - 1) * pl.fr
+    assert pl.nf * pl.dr >= d
+    assert pl.nm * pl.bm >= g * c > (pl.nm - 1) * pl.bm
+    assert pl.smem <= moe_ops.MAX_SMEM
+    if (g, e, d, f) == (1, 32, 1024, 512):
+        assert pl.nm == 1 and (pl.nf, pl.fr, pl.dr) == (4, 128, 256)
+        assert e * pl.blocks >= SMS // 2
+
+
+def test_moe_plan_refuses_an_h_beyond_shared_memory():
+    """The h of a row tile stays in shared memory, so the plan refuses an
+    expert width whose h cannot fit (granite's F = 512 fits both dtypes)."""
+    with pytest.raises(ValueError, match="moe_ffn: expert width"):
+        moe_ops.plan(1, 8, 4, 1024, 8192, torch.bfloat16)
+    with pytest.raises(ValueError, match="moe_ffn: expert width"):
+        moe_ops.plan(1, 8, 4, 1024, 2048, torch.float32)
