@@ -15,8 +15,8 @@ raises (and so exits non-zero) on failure:
    that two runs of ``ssd_scan`` and ``moe_ffn`` on the same inputs are
    bit-identical, and time each kernel beside its plain version and one
    library call (where one PyTorch call computes the same function):
-   ``ssd_scan`` at every prefill bucket (with L2 flushed at S=96),
-   ``moe_ffn`` at
+   ``ssd_scan`` at every prefill bucket (with L2 flushed at S=96, and with
+   C.B^T recomputed per block beside the plan's clusters), ``moe_ffn`` at
    every capacity, the attention kernels also with L2 flushed, and the long
    cases; the MoE router's tie order on the card;
 4. models: each reduced model on the card against the same weights on
@@ -36,7 +36,7 @@ raises (and so exits non-zero) on failure:
 The line before the last is a JSON object with one entry per kernel
 (``launches`` is the sum over the models' drains, ``launches_by_model``
 each model's drain count; ``l2_flushed_ms`` and the ``long`` case where
-timed; ``ssd_scan`` adds ``by_seq`` and ``zamba2``,
+timed; ``ssd_scan`` adds ``recompute_ms``, ``by_seq`` and ``zamba2``,
 ``moe_ffn`` ``by_capacity``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -460,8 +460,12 @@ def time_ssd(ins, chunk, flushed=False):
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     ms = time_ms(lambda: ops.ssd(*ins, chunk))
-    extra = {"l2_flushed_ms": time_flushed_ms(lambda: ops.ssd(*ins, chunk))} \
-        if flushed else {}
+    splits, cluster = ops.plan(p, n, chunk)
+    # the same scan with C.B^T recomputed in every block (clusters of 1)
+    extra = {"cluster": cluster, "recompute_ms": time_ms(lambda: ops._launch(
+        *ins, chunk, None, splits, 1))}
+    if flushed:
+        extra["l2_flushed_ms"] = time_flushed_ms(lambda: ops.ssd(*ins, chunk))
     plain = time_ms(lambda: ssd_chunked(*ins, chunk))
     n_bytes = 4 * (sum(t.numel() for t in ins) + x.numel() + b * h * p * n)
     nc = s // chunk
@@ -473,7 +477,7 @@ def time_ssd(ins, chunk, flushed=False):
             + b * h * nc * chunk * p * n)     # state updates
     bnd, by = bound_ms(n_bytes, 2.0 * macs, "float32")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                bound_by=by, **extra)
+                bound_by=by, blocks=b * h * splits, **extra)
 
 
 def _moe_inputs(gen, g, e, c, d, f, dtype, scale=None):

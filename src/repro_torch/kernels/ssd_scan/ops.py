@@ -17,7 +17,16 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-MAX_HEAD_DIM = 128  # P: a lane holds at most 4 head dims of a row
+# A block owns SPLIT_WIDTH head dims of one (batch, head) and holds its
+# part of the (P, N) state in registers, at most MAX_STATE_DIM wide. The
+# blocks of one head form clusters that share the C.B^T tiles. The rest
+# mirrors ssd_scan.cu's shared memory: query rows / keys of a score tile,
+# the partials' floats, and a raw score tile's row stride.
+SPLIT_WIDTH = 16
+MAX_STATE_DIM = 256
+CLUSTERS = (2, 4, 8)
+MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+_TILE, _PART, _LD_RAW = 32, 5120, 36
 
 launches = 0
 
@@ -33,9 +42,39 @@ def _launch_fn():
                    p, ll, ll, ll,   # Cm
                    p, p, p,         # A, D, h0 (null: zeros)
                    p, p,            # y, final state
-                   i, i, i, i, i, i, i, p]  # B, S, H, P, G, N, chunk, stream
+                   i, i, i, i, i, i, i,  # B, S, H, P, G, N, chunk
+                   i, i, p]         # P-splits, cluster, stream
     fn.restype = i
     return fn
+
+
+def _resident_bytes(n: int, chunk: int, cluster: int) -> int:
+    """Shared memory of a block that holds a whole chunk's C, B and x rows
+    (ssd_scan.cu's smem_floats with resident rows)."""
+    ld = 4 * (-(-n // 4) | 1)
+    qt = -(-chunk // _TILE) * _TILE
+    t = qt // _TILE
+    owned = -(-(t * (t + 1) // 2) // cluster)
+    return 4 * (qt * (2 * ld + SPLIT_WIDTH) + SPLIT_WIDTH * ld + _PART
+                + owned * _TILE * _LD_RAW + 3 * qt)
+
+
+def plan(p: int, n: int, chunk: int) -> Tuple[int, int]:
+    """(splits, cluster) of one call, from the shapes alone. ``splits``
+    blocks per (batch, head), each ``SPLIT_WIDTH`` head dims: row p of the
+    state and column p of y depend only on x[..., p], the shared scores and
+    the decays, so the split is exact. ``cluster`` blocks of a head split
+    the C.B^T tiles of a chunk between them and read each other's through
+    distributed shared memory: the smallest size of ``CLUSTERS`` dividing
+    ``splits`` with which a block still holds the whole chunk in shared
+    memory, else the smallest (1 when ``splits`` is odd). Pairs always fit
+    the H100 at one block an SM; clusters of 4 do not all fit at once (both
+    measured, PERF.md). At mamba2's serving shapes (H=32, P=64, N=128,
+    chunk <= 96): 4 splits in clusters of 2, 128 blocks."""
+    splits = -(-p // SPLIT_WIDTH)
+    sizes = [c for c in CLUSTERS if splits % c == 0] or [1]
+    fits = [c for c in sizes if _resident_bytes(n, chunk, c) <= MAX_SMEM]
+    return splits, (fits or sizes)[0]
 
 
 def ssd(
@@ -51,7 +90,6 @@ def ssd(
     """Returns (y (B,S,H,P), final_state (B,H,P,N) fp32). On CUDA the
     inputs may be strided views (the model passes slices of one
     projection) as long as their last axis is contiguous."""
-    global launches
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     if chunk <= 0:
@@ -91,9 +129,19 @@ def ssd(
             initial_state is not None and not initial_state.is_contiguous()):
         raise ValueError("ssd_scan: x, B and C need a contiguous last axis; "
                          "A, D and initial_state must be contiguous")
-    if p > MAX_HEAD_DIM:
-        raise ValueError(f"ssd_scan: head dim {p} beyond the kernel's "
-                         f"{MAX_HEAD_DIM}")
+    if n > MAX_STATE_DIM:
+        raise ValueError(f"ssd_scan: state dim {n} beyond the kernel's "
+                         f"{MAX_STATE_DIM}")
+    return _launch(x, dt, A, Bm, Cm, D, chunk, initial_state,
+                   *plan(p, n, chunk))
+
+
+def _launch(x, dt, A, Bm, Cm, D, chunk, initial_state, splits, cluster):
+    """Launch the kernel on checked inputs with ``splits`` blocks per
+    (batch, head) in clusters of ``cluster``."""
+    global launches
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     h0 = 0 if initial_state is None else initial_state.data_ptr()
@@ -104,7 +152,7 @@ def ssd(
         Bm.data_ptr(), *Bm.stride()[:3],
         Cm.data_ptr(), *Cm.stride()[:3],
         A.data_ptr(), D.data_ptr(), h0, y.data_ptr(), final.data_ptr(),
-        b, s, h, p, g, n, chunk, stream)
+        b, s, h, p, Bm.shape[2], n, chunk, splits, cluster, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA "
                            f"error {err}")

@@ -10,8 +10,8 @@ and the case tables of ``tests/test_kernels.py``:
   (2e-5 fp32, 2e-2 bf16);
 - each wrapper raises the JAX wrapper's call-time ``ValueError``s;
 - a CPU tensor takes the plain version and the launch counter stays 0;
-- each wrapper's launch plan (cache splits, cluster, row tiles) is a
-  function of the shapes that covers them exactly and fills
+- each wrapper's launch plan (cache splits, cluster, row tiles, head-dim
+  splits) is a function of the shapes that covers them exactly and fills
   at least half a wave of the H100's 132 SMs at the serving shapes.
 """
 
@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 
@@ -266,3 +267,51 @@ def test_moe_plan_refuses_an_h_beyond_shared_memory():
         moe_ops.plan(1, 8, 4, 1024, 8192, torch.bfloat16)
     with pytest.raises(ValueError, match="moe_ffn: expert width"):
         moe_ops.plan(1, 8, 4, 1024, 2048, torch.float32)
+
+
+# (B, H, P, N, chunk): mamba2-370m's prefill buckets (chunk = S), its
+# 4096-token case, zamba2-2.7b's shape, and the CPU tests' SSD table
+SSD_PLAN_CASES = [
+    (1, 32, 64, 128, 32), (1, 32, 64, 128, 64), (1, 32, 64, 128, 96),
+    (1, 32, 64, 128, 256), (1, 80, 64, 64, 256), (2, 4, 16, 32, 16),
+    (1, 8, 32, 16, 32), (2, 4, 8, 8, 16), (1, 2, 64, 64, 24)]
+
+
+@pytest.mark.parametrize("b,h,p,n,chunk", SSD_PLAN_CASES)
+def test_ssd_plan_covers_the_shapes(b, h, p, n, chunk):
+    """The SSD scan's plan: the head-dim splits cover P exactly, the
+    clusters divide them and stay within the portable size, a chunk stays
+    whole in shared memory wherever some cluster size allows it, the plan
+    repeats itself, and mamba2's and zamba2's shapes fill at least half a
+    wave of SMs."""
+    splits, cluster = ssd_ops.plan(p, n, chunk)
+    assert (splits, cluster) == ssd_ops.plan(p, n, chunk)
+    assert splits * ssd_ops.SPLIT_WIDTH >= p > (splits - 1) * \
+        ssd_ops.SPLIT_WIDTH
+    assert splits % cluster == 0 and 1 <= cluster <= max(ssd_ops.CLUSTERS)
+    fitting = [cl for cl in ssd_ops.CLUSTERS if splits % cl == 0
+               and ssd_ops._resident_bytes(n, chunk, cl) <= ssd_ops.MAX_SMEM]
+    if fitting:
+        assert cluster == fitting[0]
+    if h >= 32 and p == 64:
+        assert b * h * splits >= SMS // 2
+    if (h, p, n) == (32, 64, 128) and chunk <= 96:
+        assert (splits, cluster) == (4, 2)
+
+
+def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
+    """Every kernel includes ``sm90.cuh`` (the two attention kernels
+    through ``attn_tile.cuh``), so editing it rebuilds all four."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    kernels = tmp_path / "kernels"
+    shutil.copytree(_build.KERNEL_DIR, kernels,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(_build, "KERNEL_DIR", kernels)
+    header = kernels / "sm90.cuh"
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in _build.KERNELS:
+        assert header.resolve() in _build.inputs(name)
+        assert _build.library_path(name) != before[name]
