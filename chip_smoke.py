@@ -17,8 +17,9 @@ raises (and so exits non-zero) on failure:
    library call (where one PyTorch call computes the same function):
    ``ssd_scan`` at every prefill bucket (with L2 flushed at S=96, and with
    C.B^T recomputed per block beside the plan's clusters), ``moe_ffn`` at
-   every capacity, the attention kernels also with L2 flushed, and the long
-   cases; the MoE router's tie order on the card;
+   every capacity and at grok-1's expert width, the attention kernels also
+   with L2 flushed, and the long cases; the MoE router's tie order on the
+   card;
 4. models: each reduced model on the card against the same weights on
    the CPU (logits and greedy tokens); then llama3.2-1b, mamba2-370m and
    granite-moe-1b-a400m, each at its published width with seeded random
@@ -37,8 +38,8 @@ The line before the last is a JSON object with one entry per kernel
 (``launches`` is the sum over the models' drains, ``launches_by_model``
 each model's drain count; ``l2_flushed_ms`` and the ``long`` case where
 timed; ``ssd_scan`` adds ``recompute_ms``, ``by_seq`` and ``zamba2``,
-``moe_ffn`` ``by_capacity``); the last line is ``{"ok": true, "device":
-{...}}``.
+``moe_ffn`` ``by_capacity`` and ``wide``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -138,6 +139,9 @@ MAIN_SSD_S = (32, 64, 96)
 # the long cases: a 4096-token prompt in chunks of 256, and two groups
 LONG_SSD = (1, 4096, 32, 64, 1, 128, 256)
 ZAMBA2_SSD = (1, 512, 80, 64, 1, 64, 256)
+# an odd split count (P=48) at chunk 256: C.B^T tiles staged one by one and
+# computed by every block for itself, the plan's last mode
+STREAMED_SSD = (1, 512, 32, 48, 1, 128, 256)
 SSD_TOL = 5e-4       # tests/test_kernels.py
 SSD_TOL_REACH = 25.0  # outputs of that table reach 7.8-27 (CPU tests)
 
@@ -155,6 +159,15 @@ MOE_CASES = [
 MAIN_MOE = dict(g=1, e=32, d=1024, f=512)
 MAIN_MOE_C = (4, 10, 20, 30)
 LONG_MOE = dict(g=8, e=32, c=160, d=1024, f=512)  # 4096 tokens, groups of 512
+# expert widths whose h does not fit a block's shared memory, so F is cut
+# into slabs summed through an fp32 workspace: ragged last slabs in both
+# dtypes, and grok-1-314b's width (D=6144, F=32768) at two experts
+WIDE_MOE = [
+    ((1, 2, 8, 1024, 2600), "float32"),
+    ((1, 2, 8, 1024, 5000), "bfloat16"),
+    ((1, 1, 4, 6144, 32768), "float32"),
+    ((1, 2, 40, 6144, 32768), "bfloat16"),
+]
 
 
 def ssd_tolerance(*refs) -> float:
@@ -460,10 +473,11 @@ def time_ssd(ins, chunk, flushed=False):
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     ms = time_ms(lambda: ops.ssd(*ins, chunk))
-    splits, cluster = ops.plan(p, n, chunk)
-    # the same scan with C.B^T recomputed in every block (clusters of 1)
-    extra = {"cluster": cluster, "recompute_ms": time_ms(lambda: ops._launch(
-        *ins, chunk, None, splits, 1))}
+    pl = ops.plan(p, n, chunk)
+    # the same scan with C.B^T computed by every block for itself
+    recompute = ops.plan(p, n, chunk, share=False)
+    extra = {"cluster": pl.cluster, "recompute_ms": time_ms(
+        lambda: ops._launch(*ins, chunk, None, recompute))}
     if flushed:
         extra["l2_flushed_ms"] = time_flushed_ms(lambda: ops.ssd(*ins, chunk))
     plain = time_ms(lambda: ssd_chunked(*ins, chunk))
@@ -477,7 +491,7 @@ def time_ssd(ins, chunk, flushed=False):
             + b * h * nc * chunk * p * n)     # state updates
     bnd, by = bound_ms(n_bytes, 2.0 * macs, "float32")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                bound_by=by, blocks=b * h * splits, **extra)
+                bound_by=by, blocks=b * h * pl.splits, **extra)
 
 
 def _moe_inputs(gen, g, e, c, d, f, dtype, scale=None):
@@ -666,6 +680,9 @@ def phase_kernels():
                                gen)[0])
     err, zamba2_ssd = check_ssd(ZAMBA2_SSD, gen)
     note("ssd_scan", err)
+    note("ssd_scan", check_ssd(STREAMED_SSD, gen)[0])
+    note("ssd_scan", check_ssd(STREAMED_SSD, gen, h0_std=1.0,
+                               dt_scale=0.05)[0])
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     for what, (ins, chunk) in (("S=96", main_ssd[96]), ("long", long_ssd)):
         check_repeat(f"ssd_scan {what}",
@@ -694,9 +711,13 @@ def phase_kernels():
     note("moe_ffn", check_moe(long_case, "float32", gen)[0])
     err, long_moe = check_moe(long_case, "bfloat16", gen)
     note("moe_ffn", err)
+    log("  moe_ffn wide expert widths (F cut into slabs)")
+    for case, dtype in WIDE_MOE:
+        err, wide_moe = check_moe(case, dtype, gen)
+        note("moe_ffn", err)
     from repro_torch.kernels.moe_ffn import ops as moe_ops
     for what, ins in (("G=1 C=30 bf16", main_moe[30]),
-                      ("long bf16", long_moe)):
+                      ("long bf16", long_moe), ("wide F bf16", wide_moe)):
         check_repeat(f"moe_ffn {what}", lambda: moe_ops.expert_ffn(*ins))
     check_router_ties()
 
@@ -721,10 +742,15 @@ def phase_kernels():
         log(f"  moe_ffn G=1 E=32 C={c} D=1024 F=512 bf16: "
             f"{json.dumps(t_moe[c])}")
     t_long = time_moe(long_moe)
+    t_wide = time_moe(wide_moe)
+    log(f"  moe_ffn wide G=1 E=2 C=40 D=6144 F=32768 bf16: "
+        f"{json.dumps(t_wide)}")
     log(f"  moe_ffn long G=8 E=32 C=160 D=1024 F=512 bf16: "
         f"{json.dumps(t_long)}")
     t_moe_main = {**t_moe[4], "by_capacity": {c: t["ms"]
-                                              for c, t in t_moe.items()}}
+                                              for c, t in t_moe.items()},
+                  "wide": {key: t_wide[key] for key in (
+                      "ms", "plain_ms", "bound_ms", "bound_by")}}
     return errs, {**t_attn, "ssd_scan": t_ssd, "moe_ffn": t_moe_main}, \
         {**t_attn_long, "moe_ffn": t_long}
 
@@ -1287,7 +1313,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
         for key in ("l2_flushed_ms", "recompute_ms", "by_seq", "zamba2",
-                    "by_capacity"):
+                    "by_capacity", "wide"):
             if key in t:
                 kernels[-1][key] = t[key]
         if name in long_times:

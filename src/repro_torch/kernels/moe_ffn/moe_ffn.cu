@@ -46,8 +46,15 @@
 // - fp32: FMA on the CUDA cores (TF32 would miss the fp32 limit), each
 //   thread a 4 x 4 register tile per output, operands read as float4, h
 //   kept in fp32.
-// Limit: the h of one row tile, (bm, F), stays in shared memory, so F is
-// bounded (the wrapper's plan says so before a launch; F = 512 here).
+// The h of one row tile, (bm, F), stays in shared memory. Where it cannot
+// (F beyond ~4.8k in bf16 at 16 rows, ~2.4k at 32, ~1.2k in fp32; grok-1's
+// F is 32768), the block cuts F
+// into slabs of nf * fr columns whose h fits and runs the two phases once a
+// slab; the D columns it owns are summed over a slab as above and across
+// slabs, in slab order, through an fp32 workspace in device memory that
+// only the owning thread reads and writes. Still one launch, no atomics.
+// The wrapper's plan (ops.py) picks the slab width and passes the shared
+// memory size it expects, which the entry checks against Smem::bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,8 +91,9 @@ struct Geo<float> {
 };
 
 // Shared memory of a block: bm row offsets, kStages stages of [sX (bm,
-// LDX) | sWg, sWu (BK, LDA) each, or sWd (BK, LDB)], then h (bm, ldh). The
-// wrapper's plan (ops.py) mirrors bytes().
+// LDX) | sWg, sWu (BK, LDA) each, or sWd (BK, LDB)], then h (bm, ldh) of
+// fw columns (F, or the slab width where F is cut). The wrapper's plan
+// (ops.py) mirrors bytes().
 template <typename T>
 struct Smem {
   static constexpr int BK = Geo<T>::BK, PAD = Geo<T>::PAD;
@@ -97,9 +105,9 @@ struct Smem {
   __host__ __device__ static int kf(int F) { return (F + BK - 1) / BK * BK; }
   __host__ __device__ static int ldh(int F) { return (F + 31) / 32 * 32 + PAD; }
   __host__ __device__ static int stage(int bm) { return bm * LDX + W; }
-  static size_t bytes(int bm, int F) {
+  static size_t bytes(int bm, int fw) {
     return sizeof(long long) * bm +
-           sizeof(T) * ((size_t)kStages * stage(bm) + (size_t)bm * ldh(F));
+           sizeof(T) * ((size_t)kStages * stage(bm) + (size_t)bm * ldh(fw));
   }
 };
 
@@ -110,8 +118,10 @@ struct Args {
   const T* wu;
   const T* wd;
   T* out;
+  float* ws;   // (G,E,C,D) fp32 sums across slabs; null with one slab
   int G, E, C, D, F;
   int fr, dr;  // F and D columns per block of a cluster
+  int fs;      // F columns of a slab (nf * fr)
   bool vec;    // 16-byte copies (D, F and the pointers allow them)
 };
 
@@ -145,6 +155,19 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
 
 __device__ __forceinline__ float at(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Output element i of a slab's sum v: added to the earlier slabs' sum in
+// the workspace, and stored there, or in out after the last slab. With one
+// slab (first and last) it goes straight to out.
+template <typename T>
+__device__ __forceinline__ void emit(T* out, float* ws, long long i, float v,
+                                     bool first, bool last) {
+  if (!first) v += ws[i];
+  if (last)
+    store_f(out + i, v);
+  else
+    ws[i] = v;
 }
 
 // ---- bf16: tensor cores. Warp w owns columns [16w, 16w + 16) of a
@@ -225,6 +248,7 @@ __device__ __forceinline__ void tc_b(float (&o)[MT][4][4], const bf16* sH,
 
 template <int MT>
 __device__ __forceinline__ void tc_b_done(float (&o)[MT][4][4], bf16* out,
+                                          float* ws, bool first, bool last,
                                           const long long* sRow, int rows,
                                           int col0, int D) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -237,9 +261,10 @@ __device__ __forceinline__ void tc_b_done(float (&o)[MT][4][4], bf16* out,
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + w * 32 + 8 * j + 2 * (lane & 3);
         if (row < rows) {
-          bf16* p = out + sRow[row] + col;
-          if (col < D) store_f(p, o[mt][j][2 * hi]);
-          if (col + 1 < D) store_f(p + 1, o[mt][j][2 * hi + 1]);
+          const long long i = sRow[row] + col;
+          if (col < D) emit(out, ws, i, o[mt][j][2 * hi], first, last);
+          if (col + 1 < D)
+            emit(out, ws, i + 1, o[mt][j][2 * hi + 1], first, last);
         }
         o[mt][j][2 * hi] = o[mt][j][2 * hi + 1] = 0.f;
       }
@@ -327,6 +352,7 @@ __device__ __forceinline__ void fma_b(float (&o)[4][8], const float* sH,
 }
 
 __device__ __forceinline__ void fma_b_done(float (&o)[4][8], float* out,
+                                           float* ws, bool first, bool last,
                                            const long long* sRow, int rows,
                                            int col0, int D) {
   const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
@@ -336,7 +362,8 @@ __device__ __forceinline__ void fma_b_done(float (&o)[4][8], float* out,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = col0 + 4 * tx + (j & 3) + (j >> 2) * (kPassB / 2);
-      if (row < rows && col < D) out[sRow[row] + col] = o[i][j];
+      if (row < rows && col < D)
+        emit(out, ws, sRow[row] + col, o[i][j], first, last);
       o[i][j] = 0.f;
     }
   }
@@ -344,7 +371,10 @@ __device__ __forceinline__ void fma_b_done(float (&o)[4][8], float* out,
 
 // One block: rank r of the cluster of (row tile blockIdx.y, expert
 // blockIdx.z). MT: 16-row tiles of a bf16 block (fp32 blocks hold 32 rows).
-template <typename T, int MT>
+// SLABS: F is cut into slabs (else one slab holds it, and the per-chunk
+// slab arithmetic folds away: at decode a chunk is little work, so it
+// would show).
+template <typename T, int MT, bool SLABS>
 __global__ void __launch_bounds__(kThreads, 2)
     moe_ffn_kernel(const Args<T> a) {
   using S = Smem<T>;
@@ -355,7 +385,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   long long* sRow = reinterpret_cast<long long*>(smem_raw);
   T* sStage = reinterpret_cast<T*>(smem_raw + sizeof(long long) * BM);
   T* sH = sStage + kStages * S::stage(BM);
-  const int ldh = S::ldh(a.F), kf = S::kf(a.F);
+  const int D = a.D, F = a.F, fs = a.fs;
+  const int ldh = S::ldh(min(fs, F));
 
   const int rank = blockIdx.x, nf = gridDim.x, e = blockIdx.z;
   const int m0 = blockIdx.y * BM;
@@ -371,22 +402,33 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
 
-  const int D = a.D, F = a.F;
+  // Per slab (F columns [s*fs, s*fs + fs)): the depth of its
+  // down-projection (its columns rounded up to BK), its gate/up chunks and
+  // its down chunks; of the first slab (*0) and the last (*1), the only one
+  // that may be narrower.
   const int f0 = rank * a.fr, d0 = rank * a.dr;
-  const int npa = (max(0, min(a.fr, F - f0)) + kPassA - 1) / kPassA;
+  const int slabs = SLABS ? (F + fs - 1) / fs : 1, fs1 = (slabs - 1) * fs;
   const int npb = (max(0, min(a.dr, D - d0)) + kPassB - 1) / kPassB;
-  const int nka = (D + BK - 1) / BK, nkb = kf / BK;
-  const int na = npa * nka, n = na + npb * nkb;
+  const int nka = (D + BK - 1) / BK;
+  const int kf0 = S::kf(min(fs, F)), kf1 = S::kf(F - fs1);
+  const int na0 = (max(0, min(a.fr, F - f0)) + kPassA - 1) / kPassA * nka;
+  const int na1 =
+      (max(0, min(a.fr, F - fs1 - f0)) + kPassA - 1) / kPassA * nka;
+  const int len0 = na0 + npb * (kf0 / BK);  // chunks of a whole slab
+  const int n = (slabs - 1) * len0 + na1 + npb * (kf1 / BK);
   const T* wg = a.wg + (size_t)e * D * F;
   const T* wu = a.wu + (size_t)e * D * F;
   const T* wd = a.wd + (size_t)e * F * D;
 
-  // issue the copies of depth chunk i (gate/up chunks, then down chunks)
+  // issue the copies of depth chunk i (a slab's gate/up chunks, then its
+  // down chunks, slab after slab)
   auto issue = [&](int i) {
     if (i < n) {
       T* st = sStage + (i % kStages) * S::stage(BM);
-      if (i < na) {
-        const int k0 = (i % nka) * BK, fc = f0 + (i / nka) * kPassA;
+      const int s = SLABS ? min(i / len0, slabs - 1) : 0, j = i - s * len0;
+      const int fs0 = s * fs, nas = s < slabs - 1 ? na0 : na1;
+      if (j < nas) {
+        const int k0 = (j % nka) * BK, fc = fs0 + f0 + (j / nka) * kPassA;
         stage_tile<T, BK>(st, S::LDX, BM, D - k0, a.vec, wg,
                           [&](int r) -> const T* {
                             return sRow[r] < 0 ? nullptr : a.x + sRow[r] + k0;
@@ -403,8 +445,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                                               : nullptr;
                           });
       } else {
-        const int j = i - na, k0 = (j % nkb) * BK;
-        const int dc = d0 + (j / nkb) * kPassB;
+        const int nkb = (s < slabs - 1 ? kf0 : kf1) / BK, jb = j - nas;
+        const int k0 = fs0 + (jb % nkb) * BK, dc = d0 + (jb / nkb) * kPassB;
         stage_tile<T, kPassB>(st + BM * S::LDX, S::LDB, BK, D - dc, a.vec, wg,
                           [&](int r) -> const T* {
                             return k0 + r < F ? wd + (size_t)(k0 + r) * D + dc
@@ -424,63 +466,73 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int s = 0; s < kStages - 1; ++s) issue(s);
 
-  // ---- gate and up for the block's F columns, h into sH
-  if constexpr (kTc) {
-    float g[MT][2][4] = {}, u[MT][2][4] = {};
-    for (int i = 0; i < na; ++i) {
-      const T* st = next(i);
-      const T* sw = st + BM * S::LDX;
-      tc_a<MT>(g, u, st, sw, sw + BK * S::LDA);
-      if (i % nka == nka - 1)
-        tc_a_done<MT>(g, u, sH, ldh, f0 + (i / nka) * kPassA, kf);
-    }
-  } else {
-    float g[4][4] = {}, u[4][4] = {};
-    for (int i = 0; i < na; ++i) {
-      const T* st = next(i);
-      const T* sw = st + BM * S::LDX;
-      fma_a(g, u, st, sw, sw + BK * S::LDA);
-      if (i % nka == nka - 1)
-        fma_a_done(g, u, sH, ldh, f0 + (i / nka) * kPassA, kf);
-    }
-  }
+  for (int s = 0, i = 0; s < slabs; ++s) {
+    const bool whole = s < slabs - 1;
+    const int nas = whole ? na0 : na1, kfs = whole ? kf0 : kf1;
+    const int nkb = kfs / BK, nbs = npb * nkb;
+    const bool first = s == 0, last = s == slabs - 1;
+    // the peers have copied this block's h of the last slab
+    if (!first) cluster_wait();
 
-  // ---- every block copies its peers' parts of h (distributed shared
-  // memory); then none may leave before all have copied (the final wait)
-  cluster_arrive();
-  cluster_wait();
-  constexpr int V = 16 / sizeof(T);
-  for (int q = 0; q < nf; ++q) {
-    const int c0 = q * a.fr, c1 = min(kf, c0 + a.fr);
-    if (q == rank || c1 <= c0) continue;
-    const int per = (c1 - c0) / V;
-    for (int i = threadIdx.x; i < BM * per; i += kThreads) {
-      const int r = i / per;
-      T* p = sH + r * ldh + c0 + (i - r * per) * V;
-      *reinterpret_cast<uint4*>(p) = ld_peer16(peer_addr(p, q));
+    // ---- gate and up for the block's F columns of the slab, h into sH
+    if constexpr (kTc) {
+      float g[MT][2][4] = {}, u[MT][2][4] = {};
+      for (int j = 0; j < nas; ++j, ++i) {
+        const T* st = next(i);
+        const T* sw = st + BM * S::LDX;
+        tc_a<MT>(g, u, st, sw, sw + BK * S::LDA);
+        if (j % nka == nka - 1)
+          tc_a_done<MT>(g, u, sH, ldh, f0 + (j / nka) * kPassA, kfs);
+      }
+    } else {
+      float g[4][4] = {}, u[4][4] = {};
+      for (int j = 0; j < nas; ++j, ++i) {
+        const T* st = next(i);
+        const T* sw = st + BM * S::LDX;
+        fma_a(g, u, st, sw, sw + BK * S::LDA);
+        if (j % nka == nka - 1)
+          fma_a_done(g, u, sH, ldh, f0 + (j / nka) * kPassA, kfs);
+      }
     }
-  }
-  __syncthreads();
-  cluster_arrive();
 
-  // ---- the block's D columns, summed over all of F
-  if constexpr (kTc) {
-    float o[MT][4][4] = {};
-    for (int i = na; i < n; ++i) {
-      const int j = i - na;
-      const T* st = next(i);
-      tc_b<MT>(o, sH, ldh, (j % nkb) * BK, st + BM * S::LDX);
-      if (j % nkb == nkb - 1)
-        tc_b_done<MT>(o, a.out, sRow, rows, d0 + (j / nkb) * kPassB, D);
+    // ---- every block copies its peers' parts of h (distributed shared
+    // memory); then none may change its h, or leave, before all have
+    // copied (the wait of the next slab, or the final one)
+    cluster_arrive();
+    cluster_wait();
+    constexpr int V = 16 / sizeof(T);
+    for (int q = 0; q < nf; ++q) {
+      const int c0 = q * a.fr, c1 = min(kfs, c0 + a.fr);
+      if (q == rank || c1 <= c0) continue;
+      const int per = (c1 - c0) / V;
+      for (int t = threadIdx.x; t < BM * per; t += kThreads) {
+        const int r = t / per;
+        T* p = sH + r * ldh + c0 + (t - r * per) * V;
+        *reinterpret_cast<uint4*>(p) = ld_peer16(peer_addr(p, q));
+      }
     }
-  } else {
-    float o[4][8] = {};
-    for (int i = na; i < n; ++i) {
-      const int j = i - na;
-      const T* st = next(i);
-      fma_b(o, sH, ldh, (j % nkb) * BK, st + BM * S::LDX);
-      if (j % nkb == nkb - 1)
-        fma_b_done(o, a.out, sRow, rows, d0 + (j / nkb) * kPassB, D);
+    __syncthreads();
+    cluster_arrive();
+
+    // ---- the block's D columns, summed over the slab's F
+    if constexpr (kTc) {
+      float o[MT][4][4] = {};
+      for (int j = 0; j < nbs; ++j, ++i) {
+        const T* st = next(i);
+        tc_b<MT>(o, sH, ldh, (j % nkb) * BK, st + BM * S::LDX);
+        if (j % nkb == nkb - 1)
+          tc_b_done<MT>(o, a.out, a.ws, first, last, sRow, rows,
+                        d0 + (j / nkb) * kPassB, D);
+      }
+    } else {
+      float o[4][8] = {};
+      for (int j = 0; j < nbs; ++j, ++i) {
+        const T* st = next(i);
+        fma_b(o, sH, ldh, (j % nkb) * BK, st + BM * S::LDX);
+        if (j % nkb == nkb - 1)
+          fma_b_done(o, a.out, a.ws, first, last, sRow, rows,
+                     d0 + (j / nkb) * kPassB, D);
+      }
     }
   }
   cp_async_wait<0>();
@@ -488,11 +540,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <typename T, int MT>
-int launch(const Args<T>& a, int nf, cudaStream_t stream) {
+int launch(const Args<T>& a, int nf, size_t smem, cudaStream_t stream) {
   constexpr int BM = std::is_same<T, bf16>::value ? 16 * MT : 32;
-  const size_t smem = Smem<T>::bytes(BM, a.F);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = moe_ffn_kernel<T, MT>;
+  if (smem != Smem<T>::bytes(BM, min(a.fs, a.F)) || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = a.fs < a.F ? moe_ffn_kernel<T, MT, true>
+                           : moe_ffn_kernel<T, MT, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -514,19 +567,20 @@ int launch(const Args<T>& a, int nf, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(const void* x, const void* wg, const void* wu, const void* wd,
-             void* out, int G, int E, int C, int D, int F, int nf, int fr,
-             int dr, int bm, cudaStream_t stream) {
+             void* out, void* ws, int G, int E, int C, int D, int F, int nf,
+             int fr, int dr, int bm, size_t smem, cudaStream_t stream) {
   const int es = (int)sizeof(T);
   bool vec = (D * es) % 16 == 0 && (F * es) % 16 == 0;
   for (const void* p : {x, wg, wu, wd}) vec = vec && (uintptr_t)p % 16 == 0;
   const Args<T> a{(const T*)x, (const T*)wg, (const T*)wu, (const T*)wd,
-                  (T*)out,     G, E, C, D, F, fr, dr, vec};
+                  (T*)out,     (float*)ws,   G, E, C, D, F, fr, dr, nf * fr,
+                  vec};
   if constexpr (std::is_same<T, float>::value) {
     if (bm != 32) return (int)cudaErrorInvalidValue;
-    return launch<float, 2>(a, nf, stream);
+    return launch<float, 2>(a, nf, smem, stream);
   } else {
-    if (bm == 16) return launch<bf16, 1>(a, nf, stream);
-    if (bm == 32) return launch<bf16, 2>(a, nf, stream);
+    if (bm == 16) return launch<bf16, 1>(a, nf, smem, stream);
+    if (bm == 32) return launch<bf16, 2>(a, nf, smem, stream);
     return (int)cudaErrorInvalidValue;
   }
 }
@@ -535,26 +589,29 @@ int dispatch(const void* x, const void* wg, const void* wu, const void* wd,
 
 // x (G,E,C,D), wg/wu (E,D,F), wd (E,F,D), out (G,E,C,D), all contiguous
 // and of one dtype (0 = float32, 1 = bfloat16). The plan (ops.py::plan):
-// clusters of nf blocks, block r owning F columns [r*fr, (r+1)*fr) and D
-// columns [r*dr, (r+1)*dr) (multiples of 128 and 256); tiles of bm
-// capacity rows (16 or 32 in bf16, 32 in fp32). Launches on `stream` and
-// returns the CUDA error code (0 = ok).
+// clusters of nf blocks, block r owning F columns [r*fr, (r+1)*fr) of each
+// slab of nf*fr columns and D columns [r*dr, (r+1)*dr) (multiples of 128
+// and 256); tiles of bm capacity rows (16 or 32 in bf16, 32 in fp32); smem
+// bytes of shared memory a block, checked against the kernel's own count.
+// ws: an fp32 (G,E,C,D) workspace where F takes more than one slab, else
+// null. Launches on `stream` and returns the CUDA error code (0 = ok).
 extern "C" int moe_ffn_launch(const void* x, const void* wg, const void* wu,
-                              const void* wd, void* out, int G, int E, int C,
-                              int D, int F, int dtype, int nf, int fr, int dr,
-                              int bm, void* stream) {
+                              const void* wd, void* out, void* ws, int G,
+                              int E, int C, int D, int F, int dtype, int nf,
+                              int fr, int dr, int bm, long long smem,
+                              void* stream) {
   if (G <= 0 || E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 ||
       nf < 1 || nf > kMaxCluster || fr <= 0 || fr % kPassA != 0 ||
-      dr <= 0 || dr % kPassB != 0 || (long long)nf * fr < F ||
-      (long long)nf * dr < D || bm <= 0 ||
+      dr <= 0 || dr % kPassB != 0 || (long long)nf * dr < D ||
+      (ws == nullptr && (long long)nf * fr < F) || bm <= 0 || smem <= 0 ||
       ((long long)G * C + bm - 1) / bm > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch<float>(x, wg, wu, wd, out, G, E, C, D, F, nf, fr, dr, bm,
-                           s);
+    return dispatch<float>(x, wg, wu, wd, out, ws, G, E, C, D, F, nf, fr, dr,
+                           bm, (size_t)smem, s);
   if (dtype == 1)
-    return dispatch<bf16>(x, wg, wu, wd, out, G, E, C, D, F, nf, fr, dr, bm,
-                          s);
+    return dispatch<bf16>(x, wg, wu, wd, out, ws, G, E, C, D, F, nf, fr, dr,
+                          bm, (size_t)smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,15 +38,18 @@ _GEOMETRY = {torch.float32: (16, 4, (32,)),
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one call is cut: clusters of ``nf`` blocks per (expert, row
-    tile); block r computes h for F columns ``[r*fr, (r+1)*fr)`` and the
-    output for D columns ``[r*dr, (r+1)*dr)``; ``nm`` tiles of ``bm`` rows
-    cover the expert's ``G*C`` capacity rows across all groups; ``smem``
-    bytes of shared memory a block."""
+    tile); F in ``slabs`` slabs of ``nf * fr`` columns, block r computing h
+    for columns ``[r*fr, (r+1)*fr)`` of each and the output for D columns
+    ``[r*dr, (r+1)*dr)``; ``nm`` tiles of ``bm`` rows cover the expert's
+    ``G*C`` capacity rows across all groups; ``smem`` bytes of shared
+    memory a block. With more than one slab the output is summed across
+    slabs through an fp32 workspace."""
     nf: int
     fr: int
     dr: int
     bm: int
     nm: int
+    slabs: int
     smem: int
 
     @property
@@ -59,11 +62,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _smem_bytes(bm: int, f: int, dtype: torch.dtype) -> int:
+def _smem_bytes(bm: int, fw: int, dtype: torch.dtype) -> int:
+    """Shared memory of a block of ``bm`` rows whose h is ``fw`` wide
+    (moe_ffn.cu's ``Smem::bytes``)."""
     bk, pad, _ = _GEOMETRY[dtype]
     esize = torch.empty((), dtype=dtype).element_size()
     w = max(2 * bk * (PASS_F + pad), bk * (PASS_D + pad))
-    ldh = _cdiv(f, 32) * 32 + pad
+    ldh = _cdiv(fw, 32) * 32 + pad
     return 8 * bm + esize * (STAGES * (bm * (bk + pad) + w) + bm * ldh)
 
 
@@ -72,10 +77,11 @@ def plan(g: int, e: int, c: int, d: int, f: int, dtype: torch.dtype) -> Plan:
     ranges of whole gate/up passes, one block each (at most
     ``MAX_CLUSTER``), the same blocks cutting D into whole passes; the
     smallest row tile that holds all ``G*C`` rows, else the largest the
-    kernel has that fits in shared memory with the h of its rows. Raises
-    ``ValueError`` when even the smallest tile's h does not fit (F too
-    wide). At the serving shapes (E=32, D=1024, F=512): 4 blocks an expert,
-    128 blocks."""
+    kernel has that fits in shared memory with the h of its rows. Where no
+    tile's h of all of F fits (F too wide: grok-1's 32768), the row tile
+    is chosen as if all did, and F is cut into the widest slabs whose h
+    fits. At the serving shapes (E=32, D=1024, F=512): one slab, 4 blocks
+    an expert, 128 blocks."""
     _, _, tiles = _GEOMETRY[dtype]
     m = g * c
     nf = min(MAX_CLUSTER, _cdiv(f, PASS_F))
@@ -83,23 +89,25 @@ def plan(g: int, e: int, c: int, d: int, f: int, dtype: torch.dtype) -> Plan:
     nf = _cdiv(f, fr)
     dr = PASS_D * _cdiv(_cdiv(d, nf), PASS_D)
     fits = [t for t in tiles if _smem_bytes(t, f, dtype) <= MAX_SMEM]
+    bm = next((t for t in fits or tiles if m <= t), (fits or tiles)[-1])
     if not fits:
-        raise ValueError(
-            f"moe_ffn: expert width F={f} needs "
-            f"{_smem_bytes(tiles[0], f, dtype)} bytes of shared memory a "
-            f"block for h, beyond the {MAX_SMEM} an H100 block may use")
-    bm = next((t for t in fits if m <= t), fits[-1])
-    return Plan(nf, fr, dr, bm, _cdiv(m, bm), _smem_bytes(bm, f, dtype))
+        fr = PASS_F * max(k for k in range(1, fr // PASS_F + 1)
+                          if _smem_bytes(bm, nf * k * PASS_F, dtype)
+                          <= MAX_SMEM)
+    fs = nf * fr
+    return Plan(nf, fr, dr, bm, _cdiv(m, bm), _cdiv(f, fs),
+                _smem_bytes(bm, min(f, fs), dtype))
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     """The kernel's C entry point, built and loaded at first use."""
     fn = _build.load("moe_ffn").moe_ffn_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p,        # x, wg, wu, wd, out
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, p, p,     # x, wg, wu, wd, out, workspace
                    i, i, i, i, i, i,     # G E C D F, dtype
-                   i, i, i, i, p]        # nf fr dr bm (the plan), stream
+                   i, i, i, i, ll,       # the plan: nf fr dr bm smem
+                   p]                    # stream
     fn.restype = i
     return fn
 
@@ -147,11 +155,13 @@ def expert_ffn(
         raise ValueError("moe_ffn: x and the weights must be contiguous")
     pl = plan(g, e, c, d, f, x.dtype)
     out = torch.empty_like(x)
+    ws = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        if pl.slabs > 1 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _launch_fn()(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        out.data_ptr(), g, e, c, d, f, _DTYPE_CODES[x.dtype], pl.nf, pl.fr,
-        pl.dr, pl.bm, stream)
+        out.data_ptr(), 0 if ws is None else ws.data_ptr(), g, e, c, d, f,
+        _DTYPE_CODES[x.dtype], pl.nf, pl.fr, pl.dr, pl.bm, pl.smem, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn: kernel launch failed with CUDA error "
                            f"{err}")

@@ -9,6 +9,7 @@ launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -31,6 +32,37 @@ _TILE, _PART, _LD_RAW = 32, 5120, 36
 launches = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call is cut: ``splits`` blocks per (batch, head), each
+    ``SPLIT_WIDTH`` head dims, in clusters of ``cluster``; ``shared``: the
+    cluster's blocks divide a chunk's C.B^T tiles and read each other's
+    (else ``cluster`` is 1 and a block computes each tile as it uses it);
+    ``resident``: a chunk's C, B and x rows are staged whole (else tile by
+    tile); ``smem`` bytes of shared memory a block."""
+    splits: int
+    cluster: int
+    resident: bool
+    shared: bool
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_bytes(n: int, chunk: int, cluster: int, resident: bool,
+               shared: bool) -> int:
+    """Shared memory of a block (ssd_scan.cu's ``smem_floats``)."""
+    ld = 4 * (_cdiv(n, 4) | 1)
+    qt = _cdiv(chunk, _TILE) * _TILE
+    rows = qt if resident else _TILE
+    t = qt // _TILE
+    raw = _cdiv(t * (t + 1) // 2, cluster) if shared else 1
+    return 4 * (rows * (2 * ld + SPLIT_WIDTH) + SPLIT_WIDTH * ld + _PART
+                + raw * _TILE * _LD_RAW + 3 * qt)
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     """The kernel's C entry point, built and loaded at first use."""
@@ -43,38 +75,37 @@ def _launch_fn():
                    p, p, p,         # A, D, h0 (null: zeros)
                    p, p,            # y, final state
                    i, i, i, i, i, i, i,  # B, S, H, P, G, N, chunk
-                   i, i, p]         # P-splits, cluster, stream
+                   i, i, i, i, ll,  # the plan: splits cluster resident
+                                    # shared smem
+                   p]               # stream
     fn.restype = i
     return fn
 
 
-def _resident_bytes(n: int, chunk: int, cluster: int) -> int:
-    """Shared memory of a block that holds a whole chunk's C, B and x rows
-    (ssd_scan.cu's smem_floats with resident rows)."""
-    ld = 4 * (-(-n // 4) | 1)
-    qt = -(-chunk // _TILE) * _TILE
-    t = qt // _TILE
-    owned = -(-(t * (t + 1) // 2) // cluster)
-    return 4 * (qt * (2 * ld + SPLIT_WIDTH) + SPLIT_WIDTH * ld + _PART
-                + owned * _TILE * _LD_RAW + 3 * qt)
-
-
-def plan(p: int, n: int, chunk: int) -> Tuple[int, int]:
-    """(splits, cluster) of one call, from the shapes alone. ``splits``
-    blocks per (batch, head), each ``SPLIT_WIDTH`` head dims: row p of the
-    state and column p of y depend only on x[..., p], the shared scores and
-    the decays, so the split is exact. ``cluster`` blocks of a head split
-    the C.B^T tiles of a chunk between them and read each other's through
-    distributed shared memory: the smallest size of ``CLUSTERS`` dividing
-    ``splits`` with which a block still holds the whole chunk in shared
-    memory, else the smallest (1 when ``splits`` is odd). Pairs always fit
-    the H100 at one block an SM; clusters of 4 do not all fit at once (both
-    measured, PERF.md). At mamba2's serving shapes (H=32, P=64, N=128,
-    chunk <= 96): 4 splits in clusters of 2, 128 blocks."""
-    splits = -(-p // SPLIT_WIDTH)
-    sizes = [c for c in CLUSTERS if splits % c == 0] or [1]
-    fits = [c for c in sizes if _resident_bytes(n, chunk, c) <= MAX_SMEM]
-    return splits, (fits or sizes)[0]
+def plan(p: int, n: int, chunk: int, share: bool = True) -> Plan:
+    """The launch geometry of one call, from the shapes alone. ``splits``
+    blocks per (batch, head): row p of the state and column p of y depend
+    only on x[..., p], the shared scores and the decays, so the split is
+    exact. The first of these that fits a block's shared memory:
+    the chunk's rows staged whole with its C.B^T tiles shared by the
+    smallest cluster of ``CLUSTERS`` dividing ``splits``; staged whole with
+    each block computing its own tiles; tiles staged one by one, shared by
+    the smallest cluster; tiles staged one by one, each block its own.
+    ``share=False`` leaves out the shared modes (the recompute variant
+    chip_smoke.py times). Pairs always fit the H100 at one block an SM;
+    clusters of 4 do not all fit at once (both measured, PERF.md). At
+    mamba2's serving shapes (H=32, P=64, N=128, chunk <= 96): 4 splits in
+    clusters of 2, 128 blocks. Raises ``ValueError`` for a chunk too long
+    for any mode (beyond about 10k steps)."""
+    splits = _cdiv(p, SPLIT_WIDTH)
+    sizes = [c for c in CLUSTERS if splits % c == 0] if share else []
+    for resident in (True, False):
+        for cluster, shared in [(c, True) for c in sizes] + [(1, False)]:
+            smem = _smem_bytes(n, chunk, cluster, resident, shared)
+            if smem <= MAX_SMEM:
+                return Plan(splits, cluster, resident, shared, smem)
+    raise ValueError(f"ssd_scan: chunk {chunk} needs more shared memory "
+                     f"than the {MAX_SMEM} bytes an H100 block may use")
 
 
 def ssd(
@@ -133,12 +164,11 @@ def ssd(
         raise ValueError(f"ssd_scan: state dim {n} beyond the kernel's "
                          f"{MAX_STATE_DIM}")
     return _launch(x, dt, A, Bm, Cm, D, chunk, initial_state,
-                   *plan(p, n, chunk))
+                   plan(p, n, chunk))
 
 
-def _launch(x, dt, A, Bm, Cm, D, chunk, initial_state, splits, cluster):
-    """Launch the kernel on checked inputs with ``splits`` blocks per
-    (batch, head) in clusters of ``cluster``."""
+def _launch(x, dt, A, Bm, Cm, D, chunk, initial_state, pl: Plan):
+    """Launch the kernel on checked inputs as ``pl`` says."""
     global launches
     b, s, h, p = x.shape
     n = Bm.shape[3]
@@ -152,7 +182,8 @@ def _launch(x, dt, A, Bm, Cm, D, chunk, initial_state, splits, cluster):
         Bm.data_ptr(), *Bm.stride()[:3],
         Cm.data_ptr(), *Cm.stride()[:3],
         A.data_ptr(), D.data_ptr(), h0, y.data_ptr(), final.data_ptr(),
-        b, s, h, p, Bm.shape[2], n, chunk, splits, cluster, stream)
+        b, s, h, p, Bm.shape[2], n, chunk, pl.splits, pl.cluster,
+        int(pl.resident), int(pl.shared), pl.smem, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA "
                            f"error {err}")

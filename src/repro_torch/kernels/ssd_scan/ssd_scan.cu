@@ -36,8 +36,12 @@
 //   from its owner through distributed shared memory, one tile ahead of
 //   its use. The plan (ops.py::plan) takes clusters of 2, which the H100
 //   holds all at once at one block an SM, or 4 where only that keeps the
-//   chunk in shared memory (zamba2); a cluster of 1 is the recompute
-//   variant, which chip_smoke.py times beside the plan;
+//   chunk in shared memory (zamba2);
+// - where the owned tiles cannot stay in shared memory (they grow with the
+//   square of the chunk) or the splits are odd, a block computes each
+//   tile pair's C.B^T itself just before its use, into one tile
+//   (streamed: no cluster); chip_smoke.py times this recompute variant
+//   beside the plan;
 // - every product is register-tiled, its operands read as float4 from
 //   shared memory with row strides of an odd number of 16-byte groups:
 //   C.B^T (a thread owns 4 x 4 sums over a quarter of N; the quarters are
@@ -48,8 +52,9 @@
 // - a chunk's C, B and x rows are staged whole with 16-byte cp.async when
 //   they fit in shared memory (every serving shape and zamba2's), so a
 //   chunk waits for one round trip; otherwise (Q = 256 with N = 128) tile by
-//   tile. The C.state^T term is skipped while the state is zero (no initial
-//   state, first chunk);
+//   tile. The plan picks the mode and the shared memory size, which the
+//   entry checks against its own count. The C.state^T term is skipped
+//   while the state is zero (no initial state, first chunk);
 // - the log-decay a_cum is a warp scan over the chunk in segments of 32, and
 //   every decay is exp of a *difference* a_cum[i] - a_cum[j] <= 0: A reaches
 //   -16 and dt is a softplus, so a_cum reaches the hundreds within a chunk
@@ -120,13 +125,14 @@ __host__ __device__ inline int owned_pairs(int Q, int cl) {
 
 // Floats of shared memory: C, B and x rows (a whole chunk when resident,
 // else one tile of each), the state, the partials (which also hold the
-// scores of the pair loop), the raw score tiles the block owns, and dt,
-// a_cum and the state-update weights of a chunk.
-inline size_t smem_floats(int N, int Q, int cl, bool resident) {
+// scores of the pair loop), the raw score tiles the block owns when
+// shared (else the one of the current pair), and dt, a_cum and the
+// state-update weights of a chunk. ops.py::plan mirrors it.
+inline size_t smem_floats(int N, int Q, int cl, bool resident, bool shared) {
   const size_t rows = resident ? round_tile(Q) : kTile;
+  const size_t raw = shared ? owned_pairs(Q, cl) : 1;
   return rows * (2 * (size_t)row_ld(N) + kPS) + (size_t)kPS * row_ld(N) +
-         kPart + (size_t)owned_pairs(Q, cl) * kTile * kLdR +
-         3 * (size_t)round_tile(Q);
+         kPart + raw * kTile * kLdR + 3 * (size_t)round_tile(Q);
 }
 
 // dst[r * ld + c] = src(r)[c] for r < valid_rows, c < width, zeros up to
@@ -228,8 +234,10 @@ __device__ __forceinline__ void raw_scores(float* dst, const float* tC,
 }
 
 // One block: (batch * head blockIdx.x, head dims [16 y, 16 y + 16)), rank
-// blockIdx.y % cl of a cluster of cl P-splits of the same head.
-template <bool RESIDENT>
+// blockIdx.y % cl of a cluster of cl P-splits of the same head. SHARED:
+// the cluster shares the raw C.B^T tiles; else (cl = 1) the block computes
+// each pair's tile as it goes.
+template <bool RESIDENT, bool SHARED>
 __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   const int N = a.N, Q = a.Q, ld = row_ld(N), Qt = round_tile(Q);
@@ -242,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
   float* sPart = sState + kPS * ld;
   float* sS = sPart;  // two score buffers, by pair parity
   float* sRaw = sPart + kPart;
-  float* sDt = sRaw + owned_pairs(Q, cl) * kTile * kLdR;
+  float* sDt = sRaw + (SHARED ? owned_pairs(Q, cl) : 1) * kTile * kLdR;
   float* sAcum = sDt + Qt;
   float* sW = sAcum + Qt;
 
@@ -338,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
 
     // C.B^T of the tile pairs this block owns (pair t: query tile it, key
     // tile jt <= it, t = it (it + 1) / 2 + jt; owner t % cl)
-    for (int t = rank, it = 0; t < np; t += cl) {
+    for (int t = rank, it = 0; SHARED && t < np; t += cl) {
       while ((it + 1) * (it + 2) / 2 <= t) ++it;
       const int jt = t - it * (it + 1) / 2;
       const float* tC = sC + (RESIDENT ? it * kTile * ld : 0);
@@ -362,10 +370,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
     // read from the owner one pair ahead of their use
     const int si = tid >> 3, sj = 4 * (tid & 7);
     auto raw = [&](int t) {
-      return t < np ? ld_peer16(peer_addr(sRaw + (t / cl) * kTile * kLdR +
-                                              si * kLdR + sj,
-                                          t % cl))
-                    : make_uint4(0, 0, 0, 0);
+      return SHARED && t < np
+                 ? ld_peer16(peer_addr(
+                       sRaw + (t / cl) * kTile * kLdR + si * kLdR + sj,
+                       t % cl))
+                 : make_uint4(0, 0, 0, 0);
     };
     uint4 next = raw(0);
 
@@ -416,7 +425,10 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
         tX = sX + (RESIDENT ? j0 * kPS : 0);
         if (!RESIDENT) {
           __syncthreads();
-          if (last)
+          if (!SHARED && j0 == 0)
+            stage(sC, ld, kTile, Q - i0, 4 * N4, N, a.vec_bc, a.C.ptr,
+                  rows_c(c0 + i0));
+          if (last || !SHARED)
             stage(sB, ld, kTile, Q - j0, 4 * N4, N, a.vec_bc, a.B.ptr,
                   rows_b(c0 + j0));
           stage(sX, kPS, kTile, Q - j0, kPS, pn, a.vec_x, a.x.ptr,
@@ -426,6 +438,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
           __syncthreads();
         }
         float* tS = sS + (t0 & 1) * kTile * kLdS;
+        if (!SHARED) {  // this pair's raw scores, into the one raw tile
+          if (RESIDENT) __syncthreads();  // the last pair's scores are read
+          raw_scores(sRaw, sC + (RESIDENT ? i0 * ld : 0), tB, ld, N4, sPart);
+          next = *reinterpret_cast<const uint4*>(sRaw + si * kLdR + sj);
+        }
         {  // the owner's raw scores, times decay and dt, causal mask
           const uint4 u = next;
           next = raw(t0 + 1);
@@ -510,11 +527,12 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Args a) {
       }
 }
 
-template <bool RESIDENT>
-int launch(const Args& a, int splits, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(a.N, a.Q, a.cl, RESIDENT);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = ssd_scan_kernel<RESIDENT>;
+template <bool RESIDENT, bool SHARED>
+int launch(const Args& a, int splits, size_t smem, cudaStream_t stream) {
+  if (smem != sizeof(float) * smem_floats(a.N, a.Q, a.cl, RESIDENT, SHARED) ||
+      smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ssd_scan_kernel<RESIDENT, SHARED>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -543,21 +561,26 @@ bool aligned(const void* p, long long s0, long long s1, long long s2) {
 // x (B,S,H,P), dt (B,S,H), Bm/Cm (B,S,G,N): fp32, any strides with a unit
 // last one (given in elements: batch, seq, head-or-group). A, D (H,); h0
 // (B,H,P,N) or null for zeros; y (B,S,H,P) and hf (B,H,P,N) contiguous
-// outputs. S % chunk == 0, H % G == 0, N <= 256; `splits` blocks per
-// (batch, head), each 16 head dims, in clusters of `cluster` that share
-// the scores (ops.py::plan). Launches on `stream` and returns the CUDA
-// error code (0 = ok).
+// outputs. S % chunk == 0, H % G == 0, N <= 256. The plan (ops.py::plan):
+// `splits` blocks per (batch, head), each 16 head dims, in clusters of
+// `cluster` that share the scores (`shared`; else cluster 1, each block
+// computing its own), the chunk's rows staged whole (`resident`) or tile
+// by tile, and `smem` bytes of shared memory a block, checked against the
+// kernel's own count. Launches on `stream` and returns the CUDA error code
+// (0 = ok).
 extern "C" int ssd_scan_launch(
     const void* x, long long xb, long long xs, long long xh, const void* dt,
     long long db, long long ds, long long dh, const void* Bm, long long bb,
     long long bs, long long bg, const void* Cm, long long cb, long long cs,
     long long cg, const void* A, const void* D, const void* h0, void* y,
     void* hf, int nb, int S, int H, int P, int G, int N, int chunk,
-    int splits, int cluster, void* stream) {
+    int splits, int cluster, int resident, int shared, long long smem,
+    void* stream) {
   if (nb <= 0 || S <= 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 ||
       N <= 0 || N > kMaxN || chunk <= 0 || S % chunk != 0 ||
       splits * kPS < P || (splits - 1) * kPS >= P || splits > 65535 ||
-      cluster < 1 || cluster > kMaxCluster || splits % cluster != 0)
+      cluster < 1 || cluster > kMaxCluster || splits % cluster != 0 ||
+      (!shared && cluster != 1) || smem <= 0)
     return (int)cudaErrorInvalidValue;
   Args a{{(const float*)x, xb, xs, xh},
          {(const float*)dt, db, ds, dh},
@@ -572,7 +595,10 @@ extern "C" int ssd_scan_launch(
          aligned(x, xb, xs, xh) && P % 4 == 0,
          aligned(Bm, bb, bs, bg) && aligned(Cm, cb, cs, cg) && N % 4 == 0};
   cudaStream_t s = (cudaStream_t)stream;
-  if (sizeof(float) * smem_floats(N, chunk, cluster, true) <= kMaxSmem)
-    return launch<true>(a, splits, s);
-  return launch<false>(a, splits, s);
+  const size_t bytes = (size_t)smem;
+  if (resident)
+    return shared ? launch<true, true>(a, splits, bytes, s)
+                  : launch<true, false>(a, splits, bytes, s);
+  return shared ? launch<false, true>(a, splits, bytes, s)
+                : launch<false, false>(a, splits, bytes, s);
 }

@@ -10,9 +10,11 @@ and the case tables of ``tests/test_kernels.py``:
   (2e-5 fp32, 2e-2 bf16);
 - each wrapper raises the JAX wrapper's call-time ``ValueError``s;
 - a CPU tensor takes the plain version and the launch counter stays 0;
-- each wrapper's launch plan (cache splits, cluster, row tiles, head-dim
-  splits) is a function of the shapes that covers them exactly and fills
-  at least half a wave of the H100's 132 SMs at the serving shapes.
+- each wrapper's launch plan (cache splits, cluster, row tiles, F slabs,
+  head-dim splits) is a function of the shapes that covers them exactly,
+  fits a block's shared memory with the constants of its kernel's source,
+  and fills at least half a wave of the H100's 132 SMs at the serving
+  shapes.
 """
 
 import jax.numpy as jnp
@@ -231,72 +233,156 @@ def test_library_path_changes_with_every_included_header(tmp_path,
 
 
 # (G, E, C, D, F): granite-moe-1b's decode tick and prefill buckets, its
-# 4096-token case, and the CPU tests' expert-FFN table with an odd width
+# 4096-token case, the CPU tests' expert-FFN table with an odd width, and
+# expert widths whose h does not fit a block (grok-1-314b's D=6144,
+# F=32768; ragged slabs)
 MOE_PLAN_CASES = [
     (1, 32, 4, 1024, 512), (1, 32, 10, 1024, 512), (1, 32, 20, 1024, 512),
     (1, 32, 30, 1024, 512), (8, 32, 160, 1024, 512), (2, 4, 16, 64, 128),
-    (1, 8, 100, 32, 300), (1, 2, 8, 16, 48), (1, 3, 7, 33, 40)]
+    (1, 8, 100, 32, 300), (1, 2, 8, 16, 48), (1, 3, 7, 33, 40),
+    (1, 8, 4, 6144, 32768), (4, 8, 64, 6144, 32768), (1, 2, 8, 1024, 2600),
+    (1, 2, 8, 1024, 5000)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,e,c,d,f", MOE_PLAN_CASES)
 def test_moe_plan_covers_the_shapes(g, e, c, d, f, dtype):
     """The expert FFN's plan: every block of a cluster owns F columns (whole
-    gate/up passes) and the cluster covers F and D exactly; the row tiles
-    cover the G*C capacity rows of an expert exactly; the block fits in
-    shared memory; the plan takes shapes only and repeats itself; and at
-    granite's serving shapes (G=1, C <= 30) one tile holds every row, so
-    each weight byte is read once, over at least half a wave of SMs."""
+    gate/up passes) of each slab, the slabs cover F exactly and the cluster
+    covers D; the row tiles cover the G*C capacity rows of an expert
+    exactly; the block fits in shared memory; the plan takes shapes only
+    and repeats itself; and at granite's serving shapes (G=1, C <= 30) one
+    slab and one tile hold everything, so each weight byte is read once,
+    over at least half a wave of SMs."""
     pl = moe_ops.plan(g, e, c, d, f, dtype)
     assert pl == moe_ops.plan(g, e, c, d, f, dtype)
     assert 1 <= pl.nf <= moe_ops.MAX_CLUSTER
     assert pl.fr % moe_ops.PASS_F == 0 and pl.dr % moe_ops.PASS_D == 0
-    assert pl.nf * pl.fr >= f > (pl.nf - 1) * pl.fr
+    fs = pl.nf * pl.fr
+    assert pl.slabs * fs >= f > (pl.slabs - 1) * fs
+    if pl.slabs == 1:
+        assert f > (pl.nf - 1) * pl.fr
     assert pl.nf * pl.dr >= d
     assert pl.nm * pl.bm >= g * c > (pl.nm - 1) * pl.bm
+    assert pl.smem == moe_ops._smem_bytes(pl.bm, min(f, fs), dtype)
     assert pl.smem <= moe_ops.MAX_SMEM
     if (g, e, d, f) == (1, 32, 1024, 512):
-        assert pl.nm == 1 and (pl.nf, pl.fr, pl.dr) == (4, 128, 256)
+        assert pl.nm == 1 and pl.slabs == 1
+        assert (pl.nf, pl.fr, pl.dr) == (4, 128, 256)
         assert e * pl.blocks >= SMS // 2
 
 
 def test_moe_plan_refuses_an_h_beyond_shared_memory():
-    """The h of a row tile stays in shared memory, so the plan refuses an
-    expert width whose h cannot fit (granite's F = 512 fits both dtypes)."""
-    with pytest.raises(ValueError, match="moe_ffn: expert width"):
-        moe_ops.plan(1, 8, 4, 1024, 8192, torch.bfloat16)
-    with pytest.raises(ValueError, match="moe_ffn: expert width"):
-        moe_ops.plan(1, 8, 4, 1024, 2048, torch.float32)
+    """The h of a row tile stays in shared memory, so the plan never holds
+    one wider than fits: at an expert width whose h cannot fit (grok-1's
+    F = 32768), it cuts F into the widest slabs that do, in both dtypes,
+    where granite's F = 512 takes one slab."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert moe_ops.plan(1, 32, 4, 1024, 512, dtype).slabs == 1
+        pl = moe_ops.plan(1, 8, 4, 6144, 32768, dtype)
+        assert pl.slabs > 1 and pl.smem <= moe_ops.MAX_SMEM
+        wider = pl.nf * (pl.fr + moe_ops.PASS_F)
+        assert moe_ops._smem_bytes(pl.bm, wider, dtype) > moe_ops.MAX_SMEM
+        assert moe_ops._smem_bytes(pl.bm, 32768, dtype) > moe_ops.MAX_SMEM
 
 
 # (B, H, P, N, chunk): mamba2-370m's prefill buckets (chunk = S), its
-# 4096-token case, zamba2-2.7b's shape, and the CPU tests' SSD table
+# 4096-token case, zamba2-2.7b's shape, the CPU tests' SSD table, odd split
+# counts at chunk 256 (no cluster) and chunks long enough that the shared
+# C.B^T tiles do not fit a block
 SSD_PLAN_CASES = [
     (1, 32, 64, 128, 32), (1, 32, 64, 128, 64), (1, 32, 64, 128, 96),
     (1, 32, 64, 128, 256), (1, 80, 64, 64, 256), (2, 4, 16, 32, 16),
-    (1, 8, 32, 16, 32), (2, 4, 8, 8, 16), (1, 2, 64, 64, 24)]
+    (1, 8, 32, 16, 32), (2, 4, 8, 8, 16), (1, 2, 64, 64, 24),
+    (1, 32, 48, 128, 256), (1, 32, 16, 128, 256), (1, 8, 80, 256, 256),
+    (1, 8, 64, 128, 512), (1, 8, 64, 256, 1024)]
 
 
 @pytest.mark.parametrize("b,h,p,n,chunk", SSD_PLAN_CASES)
 def test_ssd_plan_covers_the_shapes(b, h, p, n, chunk):
     """The SSD scan's plan: the head-dim splits cover P exactly, the
-    clusters divide them and stay within the portable size, a chunk stays
-    whole in shared memory wherever some cluster size allows it, the plan
-    repeats itself, and mamba2's and zamba2's shapes fill at least half a
-    wave of SMs."""
-    splits, cluster = ssd_ops.plan(p, n, chunk)
-    assert (splits, cluster) == ssd_ops.plan(p, n, chunk)
-    assert splits * ssd_ops.SPLIT_WIDTH >= p > (splits - 1) * \
+    clusters divide them and stay within the portable size (1 where the
+    tiles are not shared), the planned block fits in shared memory, a
+    chunk stays whole in shared memory wherever some mode allows it, the
+    plan repeats itself, and mamba2's and zamba2's shapes fill at least
+    half a wave of SMs."""
+    pl = ssd_ops.plan(p, n, chunk)
+    assert pl == ssd_ops.plan(p, n, chunk)
+    assert pl.splits * ssd_ops.SPLIT_WIDTH >= p > (pl.splits - 1) * \
         ssd_ops.SPLIT_WIDTH
-    assert splits % cluster == 0 and 1 <= cluster <= max(ssd_ops.CLUSTERS)
-    fitting = [cl for cl in ssd_ops.CLUSTERS if splits % cl == 0
-               and ssd_ops._resident_bytes(n, chunk, cl) <= ssd_ops.MAX_SMEM]
+    assert pl.splits % pl.cluster == 0
+    assert 1 <= pl.cluster <= max(ssd_ops.CLUSTERS)
+    assert pl.shared or pl.cluster == 1
+    assert pl.smem == ssd_ops._smem_bytes(n, chunk, pl.cluster, pl.resident,
+                                         pl.shared)
+    assert pl.smem <= ssd_ops.MAX_SMEM
+    fitting = [cl for cl in ssd_ops.CLUSTERS if pl.splits % cl == 0
+               and ssd_ops._smem_bytes(n, chunk, cl, True, True)
+               <= ssd_ops.MAX_SMEM]
     if fitting:
-        assert cluster == fitting[0]
+        assert (pl.cluster, pl.resident, pl.shared) == (fitting[0], True,
+                                                         True)
+    if ssd_ops._smem_bytes(n, chunk, 1, True, False) <= ssd_ops.MAX_SMEM:
+        assert pl.resident
+    alone = ssd_ops.plan(p, n, chunk, share=False)
+    assert (alone.cluster, alone.shared) == (1, False)
+    assert alone.smem <= ssd_ops.MAX_SMEM
     if h >= 32 and p == 64:
-        assert b * h * splits >= SMS // 2
+        assert b * h * pl.splits >= SMS // 2
     if (h, p, n) == (32, 64, 128) and chunk <= 96:
-        assert (splits, cluster) == (4, 2)
+        assert (pl.splits, pl.cluster, pl.resident, pl.shared) == (4, 2,
+                                                                   True, True)
+
+
+def test_ssd_plan_refuses_a_chunk_beyond_shared_memory():
+    """A chunk's dt, log-decays and weights stay in shared memory in every
+    mode, so a chunk too long for any is refused before a launch."""
+    with pytest.raises(ValueError, match="ssd_scan: chunk 16384"):
+        ssd_ops.plan(64, 128, 16384)
+
+
+def _cu_constants(path):
+    """The namespace-level ``constexpr int|size_t name = expression;`` of a
+    CUDA source (integer arithmetic on the names before it), and the
+    ``BK``/``PAD`` of each ``Geo<T>``."""
+    import re
+    text = path.read_text()
+    found = {}
+    for name, expr in re.findall(
+            r"^constexpr (?:int|size_t) (\w+) = ([\w\s+*/()-]+);", text,
+            re.MULTILINE):
+        expr = re.sub(r"[A-Za-z_]\w*", lambda m: str(found[m[0]]), expr)
+        found[name] = eval(expr.replace("/", "//"), {"__builtins__": {}})
+    for t, bk, pad in re.findall(
+            r"struct Geo<(\w+)> \{\s*static constexpr int BK = (\d+), "
+            r"PAD = (\d+);", text):
+        found[f"Geo<{t}>"] = (int(bk), int(pad))
+    return found
+
+
+def test_moe_plan_mirrors_the_kernel_source():
+    """The plan's copies of moe_ffn.cu's geometry agree with the source,
+    so the shared memory it passes is what the kernel counts."""
+    from repro_torch.kernels import _build
+    k = _cu_constants(_build._source("moe_ffn"))
+    assert (k["kPassA"], k["kPassB"], k["kMaxCluster"], k["kStages"],
+            k["kMaxSmem"]) == (moe_ops.PASS_F, moe_ops.PASS_D,
+                               moe_ops.MAX_CLUSTER, moe_ops.STAGES,
+                               moe_ops.MAX_SMEM)
+    assert k["Geo<float>"] == moe_ops._GEOMETRY[torch.float32][:2]
+    assert k["Geo<bf16>"] == moe_ops._GEOMETRY[torch.bfloat16][:2]
+
+
+def test_ssd_plan_mirrors_the_kernel_source():
+    """The plan's copies of ssd_scan.cu's geometry agree with the source,
+    so the shared memory it passes is what the kernel counts."""
+    from repro_torch.kernels import _build
+    k = _cu_constants(_build._source("ssd_scan"))
+    assert (k["kTile"], k["kPS"], k["kMaxN"], k["kPart"], k["kMaxCluster"],
+            k["kMaxSmem"]) == (ssd_ops._TILE, ssd_ops.SPLIT_WIDTH,
+                               ssd_ops.MAX_STATE_DIM, ssd_ops._PART,
+                               max(ssd_ops.CLUSTERS), ssd_ops.MAX_SMEM)
+    assert k["kLdR"] == ssd_ops._LD_RAW
 
 
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
