@@ -9,37 +9,41 @@ raises (and so exits non-zero) on failure:
 2. build: compile every CUDA kernel of the serving paths from the sources
    in the checkout (one ``nvcc`` per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   over the CPU tests' case tables, the serving shapes and the long cases
-   (for the attention kernels also the coming slices' shapes, for
-   ``ssd_scan`` zamba2-2.7b's, for ``moe_ffn`` the table in bf16 too), show
-   that two runs of ``ssd_scan`` and ``moe_ffn`` on the same inputs are
-   bit-identical, and time each kernel beside its plain version and one
-   library call (where one PyTorch call computes the same function):
-   ``ssd_scan`` at every prefill bucket (with L2 flushed at S=96, and with
+   over the CPU tests' case tables, the serving shapes of every served
+   model and the long cases (for the attention kernels also the coming
+   slices' shapes, for ``ssd_scan`` zamba2-2.7b's S=512, for ``moe_ffn``
+   the table in bf16 too), show that two runs of ``ssd_scan`` and
+   ``moe_ffn`` on the same inputs are bit-identical, and time each kernel
+   beside its plain version and one library call (where one PyTorch call
+   computes the same function): ``ssd_scan`` at every prefill bucket of
+   mamba2-370m and of zamba2-2.7b (with L2 flushed at S=96, and with
    C.B^T recomputed per block beside the plan's clusters), ``moe_ffn`` at
-   every capacity and at grok-1's expert width, the attention kernels also
-   with L2 flushed, and the long cases; the MoE router's tie order on the
-   card;
+   every capacity and at grok-1's expert width, the attention kernels at
+   llama3.2-1b's and zamba2-2.7b's serving shapes, also with L2 flushed,
+   and the long cases; the MoE router's tie order on the card;
 4. models: each reduced model on the card against the same weights on
-   the CPU (logits and greedy tokens); then llama3.2-1b, mamba2-370m and
-   granite-moe-1b-a400m, each at its published width with seeded random
-   weights: fp32 prefill and decode logits through the kernels against the
-   plain path (for the MoE model also each layer's expert FFN on the
-   inputs the kernel run dispatched, and the count of routing decisions
-   that differ between the two runs), a bf16 continuous batcher draining 8
-   requests, with the launch counters (zeroed just before, read just after
-   each drain) proving every prefill and decode layer went through its
-   kernels, the prefill and decode-tick times (host enqueue beside wall),
-   and a ``torch.profiler`` window of where host and card time go;
+   the CPU (logits and greedy tokens); then llama3.2-1b, mamba2-370m,
+   granite-moe-1b-a400m and zamba2-2.7b, each at its published width and
+   depth with seeded random weights: fp32 prefill and decode logits and
+   every cache leaf (zamba2's nine shared-block K/V pairs included)
+   through the kernels against the plain path (for the MoE model also
+   each layer's expert FFN on the inputs the kernel run dispatched, and
+   the count of routing decisions that differ between the two runs), a
+   bf16 continuous batcher draining 8 requests, with the launch counters
+   (zeroed just before, read just after each drain) proving every prefill
+   and decode layer went through its kernels, the prefill and decode-tick
+   times (host enqueue beside wall), and a ``torch.profiler`` window of
+   where host and card time go;
 5. backend: ``TorchBackend`` answers 8 medec-shaped ``map`` requests on
-   each of the three models.
+   each of the four models.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` is the sum over the models' drains, ``launches_by_model``
 each model's drain count; ``l2_flushed_ms`` and the ``long`` case where
-timed; ``ssd_scan`` adds ``recompute_ms``, ``by_seq`` and ``zamba2``,
-``moe_ffn`` ``by_capacity`` and ``wide``); the last line is
-``{"ok": true, "device": {...}}``.
+timed; the attention kernels add ``zamba2`` (its serving shape),
+``ssd_scan`` ``recompute_ms``, ``by_seq``, ``zamba2`` (S=512) and
+``zamba2_by_seq``, ``moe_ffn`` ``by_capacity`` and ``wide``); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ DECODE_CASES = [
     (2, 64, 4, 2, 48, 1, 0.0),
 ]
 # the coming slices' attention shapes, each in fp32 and bf16: granite-34b's
-# G = 48, a G of 7, zamba2's Hd = 80 with G = 1, gemma2's Hd = 256 with
+# G = 48, a G of 7, Hd = 80 with G = 1, gemma2's Hd = 256 with
 # window 4096 and softcap 50 (S past the window), gemma3's Hd = 128 with
 # window 1024 (S past it), and head dims that are not multiples of 16: 40,
 # and an odd 33 whose rows take the narrow copies
@@ -122,6 +126,11 @@ MAIN_DECODE = dict(b=4, s=112, h=32, kv=8, hd=64, vlen=100)
 # the long cases, timed: a 2048-token prompt and an 8192-position cache
 LONG_PREFILL = (1, 2048, 32, 8, 64, 0, 0.0)
 LONG_DECODE = (1, 8192, 32, 8, 64, 8000, 0.0)
+# serving shapes of zamba2-2.7b's shared block: 32 heads over 32 kv heads
+# of 80, prefill of one prompt bucketed to 32/64/96 tokens, decode of 4
+# slots against a cache of 112 positions
+ZAMBA2_PREFILL = dict(b=1, h=32, kv=32, hd=80)
+ZAMBA2_DECODE = dict(b=4, s=112, h=32, kv=32, hd=80, vlen=100)
 L2_FLUSH_BYTES = 64 * 2 ** 20  # past the H100's 50 MB L2
 
 # tests/test_kernels.py's SSD table, and the serving shapes of mamba2-370m:
@@ -135,8 +144,10 @@ SSD_CASES = [
 ]
 MAIN_SSD = dict(b=1, h=32, p=64, g=1, n=128)
 MAIN_SSD_S = (32, 64, 96)
-# zamba2-2.7b's SSD (80 heads, P=64, N=64, chunk 256; not served yet), and
-# the long cases: a 4096-token prompt in chunks of 256, and two groups
+# zamba2-2.7b's SSD (80 heads, P=64, N=64): its serving shapes (chunk =
+# min(256, S) = S), a 512-token prompt in chunks of 256, and the long
+# cases: a 4096-token prompt in chunks of 256, and two groups
+ZAMBA2_SSD_SERVE = dict(b=1, h=80, p=64, g=1, n=64)
 LONG_SSD = (1, 4096, 32, 64, 1, 128, 256)
 ZAMBA2_SSD = (1, 512, 80, 64, 1, 64, 256)
 # an odd split count (P=48) at chunk 256: C.B^T tiles staged one by one and
@@ -594,8 +605,10 @@ def check_router_ties():
 
 def phase_attention(gen, note):
     """The two attention kernels against their plain versions over the CPU
-    tests' tables, the coming slices' shapes, the serving shapes and the
-    long cases; then their times. Returns (serving times, long times)."""
+    tests' tables, the coming slices' shapes, llama3.2-1b's and
+    zamba2-2.7b's serving shapes and the long cases; then their times.
+    Returns (serving times, with zamba2's under ``"zamba2"``, long
+    times)."""
     log("  attention: the CPU tests' tables, the coming slices' shapes (fp32 "
         "and bf16), the serving shapes and the long cases")
     for case in FLASH_CASES:
@@ -608,20 +621,21 @@ def phase_attention(gen, note):
             note("flash_attention", check_flash((*case, dtype), gen)[0])
         for case in DECODE_PORT_CASES:
             note("flash_decode", check_decode(case, dtype, gen)[0])
-    main_flash = None
+    # per model, the bf16 inputs of its largest prefill bucket and of its
+    # decode tick (the last dtype of the loop), timed below
+    prefill_in, decode_in = {}, {}
     for dtype in ("float32", "bfloat16"):
-        for s in MAIN_PREFILL_S:
-            p = MAIN_PREFILL
-            err, inputs = check_flash(
-                (p["b"], s, p["h"], p["kv"], p["hd"], 0, 0.0, dtype), gen)
-            note("flash_attention", err)
-            if dtype == "bfloat16" and s == max(MAIN_PREFILL_S):
-                main_flash = inputs
-        d = MAIN_DECODE
-        err, main_decode = check_decode(
-            (d["b"], d["s"], d["h"], d["kv"], d["hd"], d["vlen"], 0.0),
-            dtype, gen)
-        note("flash_decode", err)
+        for model, p, d in (("llama", MAIN_PREFILL, MAIN_DECODE),
+                            ("zamba2", ZAMBA2_PREFILL, ZAMBA2_DECODE)):
+            for s in MAIN_PREFILL_S:
+                err, prefill_in[model] = check_flash(
+                    (p["b"], s, p["h"], p["kv"], p["hd"], 0, 0.0, dtype),
+                    gen)
+                note("flash_attention", err)
+            err, decode_in[model] = check_decode(
+                (d["b"], d["s"], d["h"], d["kv"], d["hd"], d["vlen"], 0.0),
+                dtype, gen)
+            note("flash_decode", err)
     log("  long cases")
     note("flash_attention", check_flash((*LONG_PREFILL, "float32"),
                                         gen)[0])
@@ -633,13 +647,26 @@ def phase_attention(gen, note):
 
     log("  attention timing, bf16, CUDA graph replay (l2_flushed_ms: each "
         "call after a 64 MB write, whose own time is subtracted)")
-    times = {"flash_attention": time_flash(*main_flash),
-             "flash_decode": time_decode(*main_decode, MAIN_DECODE["vlen"])}
+    times = {"flash_attention": time_flash(*prefill_in["llama"]),
+             "flash_decode": time_decode(*decode_in["llama"],
+                                         MAIN_DECODE["vlen"])}
+    zamba2 = {"flash_attention": time_flash(*prefill_in["zamba2"]),
+              "flash_decode": time_decode(*decode_in["zamba2"],
+                                          ZAMBA2_DECODE["vlen"])}
     long_times = {"flash_attention": time_flash(*long_flash),
                   "flash_decode": time_decode(*long_decode, LONG_DECODE[5])}
     log(f"  flash_attention S=96: {json.dumps(times['flash_attention'])}")
     log(f"  flash_decode S=112 valid_len={MAIN_DECODE['vlen']}: "
         f"{json.dumps(times['flash_decode'])}")
+    log(f"  flash_attention zamba2-2.7b B=1 S=96 H=32 K=32 Hd=80: "
+        f"{json.dumps(zamba2['flash_attention'])}")
+    log(f"  flash_decode zamba2-2.7b B=4 S=112 valid_len="
+        f"{ZAMBA2_DECODE['vlen']} H=32 K=32 Hd=80: "
+        f"{json.dumps(zamba2['flash_decode'])}")
+    for name, t in zamba2.items():
+        times[name]["zamba2"] = {key: t[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "l2_flushed_ms")}
     log(f"  flash_attention long B=1 S=2048 H=32 K=8 Hd=64: "
         f"{json.dumps(long_times['flash_attention'])}")
     log(f"  flash_decode long B=1 S=8192 valid_len={LONG_DECODE[5]} H=32 K=8 "
@@ -668,12 +695,16 @@ def phase_kernels():
     m = MAIN_SSD
     note("ssd_scan", check_ssd((m["b"], 96, m["h"], m["p"], m["g"], m["n"],
                                 96), gen, h0_std=1.0, dt_scale=0.05)[0])
-    main_ssd = {}
+    main_ssd, zamba2_serve = {}, {}
+    z = ZAMBA2_SSD_SERVE
     for s in MAIN_SSD_S:
         err, main_ssd[s] = check_ssd(
             (m["b"], s, m["h"], m["p"], m["g"], m["n"], s), gen)
         note("ssd_scan", err)
-    log("  ssd_scan long cases and zamba2-2.7b's shape")
+        err, zamba2_serve[s] = check_ssd(
+            (z["b"], s, z["h"], z["p"], z["g"], z["n"], s), gen)
+        note("ssd_scan", err)
+    log("  ssd_scan long cases and zamba2-2.7b's S=512")
     err, long_ssd = check_ssd(LONG_SSD, gen)
     note("ssd_scan", err)
     note("ssd_scan", check_ssd((1, 512, m["h"], m["p"], 2, m["n"], 256),
@@ -729,9 +760,17 @@ def phase_kernels():
     for s, (ins, chunk) in main_ssd.items():
         t_ssd_s[s] = time_ssd(ins, chunk, flushed=s == max(MAIN_SSD_S))
         log(f"  ssd_scan S={s} chunk {chunk}: {json.dumps(t_ssd_s[s])}")
+    t_zamba2 = {}
+    for s, (ins, chunk) in zamba2_serve.items():
+        t_zamba2[s] = time_ssd(ins, chunk)
+        log(f"  ssd_scan zamba2-2.7b B=1 S={s} H=80 P=64 N=64 chunk {chunk}: "
+            f"{json.dumps(t_zamba2[s])}")
     t_ssd = {**t_ssd_s[max(MAIN_SSD_S)],
              "by_seq": {s: t["ms"] for s, t in t_ssd_s.items()},
-             "zamba2": time_ssd(*zamba2_ssd)}
+             "zamba2": time_ssd(*zamba2_ssd),
+             "zamba2_by_seq": {s: {key: t[key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by")}
+                 for s, t in t_zamba2.items()}}
     log(f"  ssd_scan zamba2-2.7b B=1 S=512 H=80 P=64 N=64 chunk 256: "
         f"{json.dumps(t_ssd['zamba2'])}")
     log("  moe_ffn (no single PyTorch call computes a per-expert SwiGLU: "
@@ -845,6 +884,12 @@ def _plain_attention_moe():
         yield
 
 
+@contextlib.contextmanager
+def _plain_attention_ssd():
+    with _PlainAttention(), _PlainSSD():
+        yield
+
+
 class _RecordMoE:
     """Records, per MoE layer call, the routing (``assign``) and the expert
     FFN's inputs and output, calling through to whatever the call sites
@@ -878,20 +923,35 @@ class _RecordMoE:
         return False
 
 
+def _shared_applications(cfg) -> int:
+    """How often a hybrid model applies its shared block: once after each
+    full period of ``hybrid_attn_every`` layers."""
+    from repro_torch.models.transformer import layout
+    return layout(cfg)[1]
+
+
 # per model: the context that routes it to plain versions, and the kernel
-# launches a drain of n_req requests over `ticks` decode ticks must show
+# launches a drain of n_req requests over `ticks` decode ticks must show,
+# from the model's config
 MODELS = {
-    "llama3.2-1b": (_PlainAttention, lambda n_layers, n_req, ticks: {
-        "flash_attention": n_layers * n_req,
-        "flash_decode": n_layers * ticks, "ssd_scan": 0, "moe_ffn": 0}),
-    "mamba2-370m": (_PlainSSD, lambda n_layers, n_req, ticks: {
+    "llama3.2-1b": (_PlainAttention, lambda cfg, n_req, ticks: {
+        "flash_attention": cfg.num_layers * n_req,
+        "flash_decode": cfg.num_layers * ticks, "ssd_scan": 0,
+        "moe_ffn": 0}),
+    "mamba2-370m": (_PlainSSD, lambda cfg, n_req, ticks: {
         "flash_attention": 0, "flash_decode": 0,
-        "ssd_scan": n_layers * n_req, "moe_ffn": 0}),
+        "ssd_scan": cfg.num_layers * n_req, "moe_ffn": 0}),
     "granite-moe-1b-a400m": (
-        _plain_attention_moe, lambda n_layers, n_req, ticks: {
-            "flash_attention": n_layers * n_req,
-            "flash_decode": n_layers * ticks, "ssd_scan": 0,
-            "moe_ffn": n_layers * (n_req + ticks)}),
+        _plain_attention_moe, lambda cfg, n_req, ticks: {
+            "flash_attention": cfg.num_layers * n_req,
+            "flash_decode": cfg.num_layers * ticks, "ssd_scan": 0,
+            "moe_ffn": cfg.num_layers * (n_req + ticks)}),
+    # 54 mamba layers (ssd_scan in prefill, no kernel in decode) and 9
+    # applications of the shared attention block
+    "zamba2-2.7b": (_plain_attention_ssd, lambda cfg, n_req, ticks: {
+        "flash_attention": _shared_applications(cfg) * n_req,
+        "flash_decode": _shared_applications(cfg) * ticks,
+        "ssd_scan": cfg.num_layers * n_req, "moe_ffn": 0}),
 }
 
 
@@ -951,10 +1011,11 @@ def check_small_model(arch):
 
 
 def _check_fp32(arch, full):
-    """fp32 at published width: prefill logits, every cache leaf (K/V, or
-    the SSD state and conv tail) and the next decode logits, through the
-    kernels against the plain path, atol 1e-3. Also the kernel launches of
-    one prefill and of one decode step.
+    """fp32 at published width: prefill logits, every cache leaf (each
+    layer's K/V, or its SSD state and conv tail, and each shared-block
+    application's K/V) and the next decode logits, through the kernels
+    against the plain path, atol 1e-3. Also the kernel launches of one
+    prefill and of one decode step.
 
     For an MoE model a difference of ~1e-6 between kernel and plain
     version can flip a near-tied top-k choice, and every later layer then
@@ -1023,21 +1084,25 @@ def _check_fp32(arch, full):
     if not n_diff:
         err_pre = (logits_k - logits_p).abs().max().item()
         err_dec = (dec_k - dec_p).abs().max().item()
-        err_cache, big = 0.0, 0.0
-        for lk, lp in zip(cache_k["layers"], cache_p["layers"]):
-            for key in lk:
-                err_cache = max(err_cache,
-                                (lk[key] - lp[key]).abs().max().item())
-                big = max(big, lp[key].abs().max().item())
+        err_cache, big, leaves = 0.0, 0.0, []
+        for group in ("layers", "shared"):
+            assert len(cache_k.get(group, [])) == len(cache_p.get(group, []))
+            for lk, lp in zip(cache_k.get(group, []),
+                              cache_p.get(group, [])):
+                for key in lk:
+                    err_cache = max(err_cache,
+                                    (lk[key] - lp[key]).abs().max().item())
+                    big = max(big, lp[key].abs().max().item())
+                    leaves.append(f"{group}.{key}")
+        kinds = {k: leaves.count(k) for k in sorted(set(leaves))}
         log(f"  fp32 prefill logits, kernels vs plain: "
-            f"max_abs_err={err_pre:.3e}; cache "
-            f"{sorted(cache_k['layers'][0])}: {err_cache:.3e} (max|ref| "
-            f"{big:.3e}); decode logits: {err_dec:.3e} (atol 1e-3)")
+            f"max_abs_err={err_pre:.3e}; cache leaves {kinds}: "
+            f"{err_cache:.3e} (max|ref| {big:.3e}); decode logits: "
+            f"{err_dec:.3e} (atol 1e-3)")
         if not (err_pre <= 1e-3 and err_dec <= 1e-3 and err_cache <= 1e-3):
             raise AssertionError(f"full-width fp32 {arch} disagrees: "
                                  f"{err_pre} {err_cache} {err_dec}")
-    n_layers = full.num_layers
-    want_pre, want_dec = want(n_layers, 1, 0), want(n_layers, 0, 1)
+    want_pre, want_dec = want(full, 1, 0), want(full, 0, 1)
     log(f"  launches: prefill {pre}, decode step {dec}")
     if pre != want_pre or dec != want_dec:
         raise AssertionError(f"launches {pre} {dec} != {want_pre} "
@@ -1097,7 +1162,7 @@ def phase_model(arch):
     for r in done:
         assert len(r.generated) == new_tokens, r
         assert all(0 <= t < full.vocab_size for t in r.generated), r
-    want = MODELS[arch][1](full.num_layers, n_req, ticks)
+    want = MODELS[arch][1](full, n_req, ticks)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
 
@@ -1241,7 +1306,7 @@ def phase_backend(arch, params):
         assert (res.usage.calls, res.usage.in_tokens, res.usage.out_tokens) \
             == (1, want_in, be.max_new_tokens), res.usage
     # the model's kernels launched, the others not at all
-    used = MODELS[arch][1](full.num_layers, 1, 1)
+    used = MODELS[arch][1](full, 1, 1)
     assert all((launches[k] > 0) == (used[k] > 0) for k in used), launches
     cost = sum(be.usage_cost(arch, r.usage) for r in results)
     log(f"  8 results ok, launches {launches}, cost ${cost:.3e}")
@@ -1313,7 +1378,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
         for key in ("l2_flushed_ms", "recompute_ms", "by_seq", "zamba2",
-                    "by_capacity", "wide"):
+                    "zamba2_by_seq", "by_capacity", "wide"):
             if key in t:
                 kernels[-1][key] = t[key]
         if name in long_times:

@@ -5,11 +5,13 @@ converted to a numpy array (``jax.tree.map(np.asarray, params)``). bfloat16
 leaves must arrive as their raw ``uint16`` bits (``.view(np.uint16)``):
 numpy's bf16 dtype comes from ``ml_dtypes``, which ``torch.from_numpy``
 refuses and which the port does not import. The bridge views those bits as
-``torch.bfloat16``. The per-slot stacked axis 0 of
-``tree["layers"]["slot0"]`` is unstacked into one block per layer (a
-``Block`` or a ``MambaBlock``), and every weight keeps its ``(in, out)``
-layout. Norm scales, an MoE router and a mamba block's ``A_log``, ``D``
-and ``dt_bias`` are fp32 whatever ``param_dtype`` is, as in the JAX init.
+``torch.bfloat16``. The JAX tree stacks a period's slot ``i`` along axis
+0 (``tree["layers"]["slot{i}"]``), so layer ``period * every + i`` takes
+index ``period`` of slot ``i``; the unstacked ``tree["tail"][j]`` goes to
+layer ``n_full * every + j``, and a hybrid model's ``tree["shared"]`` to
+its one shared block. Every weight keeps its ``(in, out)`` layout. Norm
+scales, an MoE router and a mamba block's ``A_log``, ``D`` and
+``dt_bias`` are fp32 whatever ``param_dtype`` is, as in the JAX init.
 """
 
 from __future__ import annotations
@@ -52,10 +54,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     pdt = L.dtype_of(cfg.param_dtype)
     # structure and shapes from a throwaway init on the CPU
     model = transformer.init_params(0, cfg, device="cpu")
-    slot = tree["layers"]["slot0"]
-    if tree.get("tail"):
-        raise NotImplementedError("layer tails: not in the ported "
-                                  "families")
+    pattern, n_full, _ = transformer.layout(cfg)
+    every = len(pattern)
     with torch.no_grad():
         _assign(model.embed.tokens, tree["embed"]["tokens"], pdt, dev)
         if "unembed" in tree["embed"]:
@@ -63,36 +63,52 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         _assign(model.final_norm.scale, tree["final_norm"]["scale"],
                 torch.float32, dev)
         for i, blk in enumerate(model.layers):
-            if isinstance(blk, transformer.MambaBlock):
-                _assign_mamba(blk, slot, i, pdt, dev)
-                continue
-            _assign(blk.norm_attn.scale, slot["norm_attn"]["scale"][i],
-                    torch.float32, dev)
-            _assign(blk.norm_mlp.scale, slot["norm_mlp"]["scale"][i],
-                    torch.float32, dev)
-            for name in ("wq", "wk", "wv", "wo"):
-                _assign(getattr(blk.attn, name), slot["attn"][name][i], pdt,
-                        dev)
-            tree_ffn = slot["moe"] if cfg.is_moe else slot["mlp"]
-            if cfg.is_moe:
-                _assign(blk.ffn.router, tree_ffn["router"][i], torch.float32,
-                        dev)
-            for name in ("w_gate", "w_up", "w_down"):
-                _assign(getattr(blk.ffn, name), tree_ffn[name][i], pdt, dev)
+            if i < n_full * every:
+                leaves = _index(tree["layers"][f"slot{i % every}"],
+                                i // every)
+            else:
+                leaves = tree["tail"][i - n_full * every]
+            _assign_block(blk, leaves, pdt, dev)
+        if cfg.family == "hybrid":
+            _assign_block(model.shared, tree["shared"], pdt, dev)
     return model
+
+
+def _index(leaves: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Entry ``i`` of a stacked slot: every leaf indexed along axis 0."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in leaves.items()}
+
+
+def _assign_block(blk, leaves: Dict[str, Any], pdt: torch.dtype,
+                  dev: torch.device) -> None:
+    """One layer's (unstacked) leaves into a ``Block`` or ``MambaBlock``."""
+    if isinstance(blk, transformer.MambaBlock):
+        _assign_mamba(blk, leaves, pdt, dev)
+        return
+    _assign(blk.norm_attn.scale, leaves["norm_attn"]["scale"],
+            torch.float32, dev)
+    _assign(blk.norm_mlp.scale, leaves["norm_mlp"]["scale"], torch.float32,
+            dev)
+    for name in ("wq", "wk", "wv", "wo"):
+        _assign(getattr(blk.attn, name), leaves["attn"][name], pdt, dev)
+    ffn = leaves["moe"] if "moe" in leaves else leaves["mlp"]
+    if "moe" in leaves:
+        _assign(blk.ffn.router, ffn["router"], torch.float32, dev)
+    for name in ("w_gate", "w_up", "w_down"):
+        _assign(getattr(blk.ffn, name), ffn[name], pdt, dev)
 
 
 _MAMBA_FP32 = ("A_log", "D", "dt_bias")
 _MAMBA_PARAM_DTYPE = ("in_proj", "conv_w", "conv_b", "out_proj")
 
 
-def _assign_mamba(blk: transformer.MambaBlock, slot: Dict[str, Any], i: int,
+def _assign_mamba(blk: transformer.MambaBlock, leaves: Dict[str, Any],
                   pdt: torch.dtype, dev: torch.device) -> None:
-    _assign(blk.norm.scale, slot["norm"]["scale"][i], torch.float32, dev)
-    tree = slot["mamba"]
-    _assign(blk.mamba.norm.scale, tree["norm"]["scale"][i], torch.float32,
-            dev)
+    _assign(blk.norm.scale, leaves["norm"]["scale"], torch.float32, dev)
+    tree = leaves["mamba"]
+    _assign(blk.mamba.norm.scale, tree["norm"]["scale"], torch.float32, dev)
     for name in _MAMBA_FP32:
-        _assign(getattr(blk.mamba, name), tree[name][i], torch.float32, dev)
+        _assign(getattr(blk.mamba, name), tree[name], torch.float32, dev)
     for name in _MAMBA_PARAM_DTYPE:
-        _assign(getattr(blk.mamba, name), tree[name][i], pdt, dev)
+        _assign(getattr(blk.mamba, name), tree[name], pdt, dev)

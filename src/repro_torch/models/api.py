@@ -8,7 +8,7 @@
     input_names(cfg)                           -> which inputs the family takes
 
 Encoder-decoder and VLM models raise ``NotImplementedError`` until their
-slice (ROADMAP.md module item 9).
+slice (the encoder-decoder/VLM item of ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ def _check_decoder_only(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder or cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and VLM models are not ported yet "
-            f"(ROADMAP.md module item 9)")
+            f"(the encoder-decoder/VLM item of ROADMAP.md §1)")
 
 
 def input_names(cfg: ModelConfig):

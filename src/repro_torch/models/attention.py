@@ -1,4 +1,5 @@
-"""Grouped-query attention with RoPE and a KV cache, for the dense decoder.
+"""Grouped-query attention with RoPE and a KV cache, for the dense decoder
+and the hybrid family's shared block.
 
 Two call sites reach the hand-written kernels, always (``cfg.use_pallas``
 is not read): causal self-attention prefill goes through
@@ -9,7 +10,8 @@ wrapper launches its kernel; on a CPU tensor it runs its plain version.
 paths that do not reach a kernel (non-causal self-attention).
 
 Ring-buffer (sliding-window) decode, int8 caches and cross-attention arrive
-with their slices (ROADMAP.md, item 6 and 9).
+with their slices (the local/global attention and encoder-decoder/VLM items
+of ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ class Attention(nn.Module):
         super().__init__()
         if cfg.qk_norm:
             raise NotImplementedError(
-                "qk_norm: ported with local/global attention (ROADMAP.md "
-                "module item 6)")
+                "qk_norm: ported with the local/global attention item of "
+                "ROADMAP.md §1")
         dtype = L.dtype_of(cfg.param_dtype)
         hd = cfg.resolved_head_dim
         self.wq = L._param(L.dense_init(gen, cfg.d_model, cfg.num_heads * hd,
@@ -136,8 +138,8 @@ def attn_decode(
     """
     if ring or window is not None:
         raise NotImplementedError(
-            "ring-buffer / windowed decode: ported with local/global "
-            "attention (ROADMAP.md module item 6)")
+            "ring-buffer / windowed decode: ported with the local/global "
+            "attention item of ROADMAP.md §1")
     b = x.shape[0]
     smax = cache_k.shape[1]
     pos = cache_len.reshape(1, 1).expand(b, 1)  # query abs position
@@ -168,8 +170,8 @@ def attn_decode_cached(
     and returned."""
     if "k_scale" in lc:
         raise NotImplementedError(
-            "int8 KV cache: ported with the int8 slice (ROADMAP.md module "
-            "item 6)")
+            "int8 KV cache: ported with the local/global attention item of "
+            "ROADMAP.md §1")
     out, (ck, cv) = attn_decode(p, cfg, x, lc["k"], lc["v"], cache_len,
                                 window=window, ring=ring)
     return out, {"k": ck, "v": cv}

@@ -1,16 +1,21 @@
 """Decoder-only model: the dense decoder with global attention
 (llama3.2-1b), the same decoder with an MoE layer in place of the MLP
-(granite-moe-1b-a400m) and the attention-free Mamba2 stack (mamba2-370m).
+(granite-moe-1b-a400m), the attention-free Mamba2 stack (mamba2-370m) and
+the hybrid Mamba2 stack with one shared attention+MLP block (zamba2-2.7b).
 
 The JAX package stacks layer params along axis 0 and scans over them; the
 port holds one block per layer in a ``ModuleList`` and loops in Python: a
 ``Block`` (attention + MLP or MoE) for an ``attn_global`` layer, a
-``MambaBlock`` for a ``mamba`` layer. The decode cache mirrors that:
+``MambaBlock`` for a ``mamba`` layer. A hybrid model also holds ``shared``,
+one ``Block`` applied after the last layer of each full period of
+``hybrid_attn_every`` layers (never after the tail layers), as the JAX
+package applies its shared block. The decode cache mirrors that:
 ``cache["layers"][i]`` is layer i's ``{"k", "v"}`` of shape
 ``(B, max_len, K, Hd)``, or its
-``{"ssm": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)}``, and
-``cache["len"]`` is one int32 tensor on the model's device shared by the
-batch.
+``{"ssm": (B, H, P, N) fp32, "conv": (B, W-1, conv_dim)}``;
+``cache["shared"][j]`` (hybrid only) is the ``{"k", "v"}`` of the shared
+block's j-th application, a tensor of its own; and ``cache["len"]`` is one
+int32 tensor on the model's device shared by the batch.
 
 Other families and options raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -38,23 +43,23 @@ Cache = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not port yet."""
     todo = []
-    if cfg.family not in ("dense", "ssm", "moe"):
-        todo.append(f"family {cfg.family!r} (hybrid: zamba2's shared "
-                    f"attention block, item 8, enc-dec/VLM: item 9)")
+    if cfg.family not in ("dense", "ssm", "moe", "hybrid"):
+        todo.append(f"family {cfg.family!r} (encoder-decoder/VLM item)")
+    local_global = "local/global attention item"
     if cfg.attn_pattern != "global":
-        todo.append("local_global attention (item 6)")
+        todo.append(f"local_global attention ({local_global})")
     if cfg.kv_cache_dtype == "int8":
-        todo.append("int8 KV cache (item 6)")
+        todo.append(f"int8 KV cache ({local_global})")
     if cfg.qk_norm:
-        todo.append("qk_norm (item 6)")
+        todo.append(f"qk_norm ({local_global})")
     if cfg.post_norms:
-        todo.append("post_norms (item 6)")
+        todo.append(f"post_norms ({local_global})")
     if cfg.scale_embeddings:
-        todo.append("scale_embeddings (item 6)")
+        todo.append(f"scale_embeddings ({local_global})")
     if todo:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet — " + "; ".join(todo)
-            + " (ROADMAP.md, modules to port)")
+            + "; see ROADMAP.md §1, modules to port")
 
 
 # --------------------------------------------------------------------------
@@ -64,9 +69,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def layout(cfg: ModelConfig) -> Tuple[List[str], int, List[str]]:
     """Returns (pattern, n_full_periods, tail_kinds), as the JAX package
-    does; one slot per layer (``mamba`` for the SSM family, else
+    does: for the hybrid family ``hybrid_attn_every`` mamba slots a period
+    and the ``num_layers % every`` layers left over as a mamba tail; else
+    one slot per layer (``mamba`` for the SSM family, else
     ``attn_global``) and no tail."""
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        every = max(cfg.hybrid_attn_every, 1)
+        n_full = cfg.num_layers // every
+        return (["mamba"] * every, n_full,
+                ["mamba"] * (cfg.num_layers - n_full * every))
     kind = "mamba" if cfg.family == "ssm" else "attn_global"
     return [kind], cfg.num_layers, []
 
@@ -157,7 +169,9 @@ _BLOCKS = {"attn_global": Block, "mamba": MambaBlock}
 
 
 class Transformer(nn.Module):
-    """Weights of the decoder: ``embed``, ``layers``, ``final_norm``."""
+    """Weights of the decoder: ``embed``, ``layers``, ``final_norm``, and
+    for the hybrid family ``shared`` (one attention + MLP block, held even
+    where no full period applies it, as in the JAX init)."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
@@ -165,6 +179,22 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(_BLOCKS[kind](gen, cfg)
                                     for kind in layer_kinds(cfg))
         self.final_norm = L.RMSNorm(cfg.d_model, gen.device)
+        if cfg.family == "hybrid":
+            self.shared = Block(gen, cfg)
+
+
+def _blocks(params: Transformer, cfg: ModelConfig):
+    """The blocks in the order they run, each with the cache list that
+    holds its cache: every layer (``"layers"``), and for the hybrid family
+    the shared block (``"shared"``) after the last layer of each full
+    period."""
+    pattern, n_full, _ = layout(cfg)
+    period = len(pattern)
+    hybrid = cfg.family == "hybrid"
+    for i, blk in enumerate(params.layers):
+        yield blk, "layers"
+        if hybrid and (i + 1) % period == 0 and i < n_full * period:
+            yield params.shared, "shared"
 
 
 def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
@@ -203,11 +233,17 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Optional[Union[str, torch.device]] = None) -> Cache:
     dev = resolve_device(device)
-    return {
+    cache: Cache = {
         "len": torch.zeros((), dtype=torch.int32, device=dev),
         "layers": [_BLOCKS[kind].empty_cache(cfg, batch, max_len, dev)
                    for kind in layer_kinds(cfg)],
     }
+    if cfg.family == "hybrid":
+        # one zeroed buffer per application: decode writes each in place,
+        # so they must not share storage (as an ``expand`` would)
+        cache["shared"] = [Block.empty_cache(cfg, batch, max_len, dev)
+                           for _ in range(layout(cfg)[1])]
+    return cache
 
 
 def _seed_attn_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
@@ -216,11 +252,18 @@ def _seed_attn_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
     zero-padding the sequence axis to ``max_len`` (global layers)."""
     if kind != "attn_global":
         raise NotImplementedError(
-            f"{kind} cache seeding: ported with local/global attention "
-            f"(ROADMAP.md module item 6)")
+            f"{kind} cache seeding: ported with the local/global attention "
+            f"item of ROADMAP.md §1")
     pad = max_len - k.shape[1]
     return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
             "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def _cache_lists(cfg: ModelConfig) -> Dict[str, list]:
+    """Empty per-block cache lists of a cache dict, keyed as ``_blocks``
+    names them."""
+    return {"layers": [], **({"shared": []} if cfg.family == "hybrid"
+                             else {})}
 
 
 # --------------------------------------------------------------------------
@@ -237,7 +280,7 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params.layers:
+    for p, _ in _blocks(params, cfg):
         x, _, a = p.full(cfg, x, positions, s)
         if a is not None:
             aux = aux + a
@@ -255,17 +298,15 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed_inputs(params, cfg, tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    layers = []
-    for p in params.layers:
+    caches = _cache_lists(cfg)
+    for p, where in _blocks(params, cfg):
         x, lc, _ = p.full(cfg, x, positions, max_len)
-        layers.append(lc)
+        caches[where].append(lc)
     x = params.final_norm(x, cfg.norm_eps)
     logits = L.unembed(params.embed.out_table, cfg, x[:, -1:, :])
-    cache: Cache = {
+    return logits, {
         "len": torch.full((), s, dtype=torch.int32, device=x.device),
-        "layers": layers,
-    }
-    return logits, cache
+        **caches}
 
 
 @torch.no_grad()
@@ -277,13 +318,15 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     ``len`` advanced by one."""
     x = _embed_inputs(params, cfg, token)
     cache_len = cache["len"]
-    new_layers = []
-    for p, lc in zip(params.layers, cache["layers"]):
-        x, nc = p.decode(cfg, x, lc, cache_len)
-        new_layers.append(nc)
+    old = {where: iter(lcs) for where, lcs in cache.items()
+           if where != "len"}
+    caches = _cache_lists(cfg)
+    for p, where in _blocks(params, cfg):
+        x, nc = p.decode(cfg, x, next(old[where]), cache_len)
+        caches[where].append(nc)
     x = params.final_norm(x, cfg.norm_eps)
     logits = L.unembed(params.embed.out_table, cfg, x)
-    return logits, {"len": cache_len + 1, "layers": new_layers}
+    return logits, {"len": cache_len + 1, **caches}
 
 
 def count_params(params: nn.Module) -> int:

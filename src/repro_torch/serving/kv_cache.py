@@ -1,13 +1,13 @@
-"""Decode-cache sizing and accounting helpers (the global-attention and
-mamba parts of the JAX package's ``serving/kv_cache.py``; int8
-quantisation arrives with the int8 slice)."""
+"""Decode-cache sizing and accounting helpers (the global-attention,
+mamba and hybrid parts of the JAX package's ``serving/kv_cache.py``; int8
+quantisation arrives with local/global attention)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_kinds
+from repro_torch.models.transformer import layer_kinds, layout
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
@@ -22,6 +22,9 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
         else:
             total += 2 * batch * max_len * cfg.num_kv_heads * \
                 cfg.resolved_head_dim * bpe
+    if cfg.family == "hybrid":  # one K/V pair per shared-block application
+        total += layout(cfg)[1] * 2 * batch * max_len * cfg.num_kv_heads * \
+            cfg.resolved_head_dim * bpe
     return total
 
 

@@ -107,19 +107,21 @@ class ContinuousBatcher:
 
     def _splice(self, one_cache, slot: int) -> None:
         """Copy a single-sequence cache into row ``slot`` of the batch
-        cache, in place, leaf by leaf: ``k``/``v`` of an attention layer,
-        ``ssm``/``conv`` of a mamba layer, each cast to the batch leaf's
-        dtype (a prefill's conv tail is in the compute dtype). Copies the
-        JAX splice's rule: a leaf whose shape already equals the batch
-        leaf's is left alone, so with one slot the prefill cache is not
-        copied in (reference behaviour)."""
-        for lb, lo in zip(self.cache.get("layers", []),
-                          one_cache.get("layers", [])):
-            for key, batch_leaf in lb.items():
-                one_leaf = lo[key]
-                if one_leaf.shape == batch_leaf.shape:
-                    continue
-                batch_leaf[slot].copy_(one_leaf[0])
+        cache, in place, leaf by leaf: ``k``/``v`` of an attention layer or
+        of a shared-block application (hybrid), ``ssm``/``conv`` of a mamba
+        layer, each cast to the batch leaf's dtype (a prefill's conv tail
+        is in the compute dtype). Copies the JAX splice's rule: a leaf
+        whose shape already equals the batch leaf's is left alone, so with
+        one slot the prefill cache is not copied in (reference
+        behaviour)."""
+        for group in ("layers", "shared"):
+            for lb, lo in zip(self.cache.get(group, []),
+                              one_cache.get(group, [])):
+                for key, batch_leaf in lb.items():
+                    one_leaf = lo[key]
+                    if one_leaf.shape == batch_leaf.shape:
+                        continue
+                    batch_leaf[slot].copy_(one_leaf[0])
 
     def _admit(self):
         """Fill empty slots: prefill each incoming prompt and splice its

@@ -106,7 +106,8 @@ def test_configs_equal_jax():
     """The config copy keeps every field of the JAX dataclass, with the
     same values for every ported arch, full and reduced."""
     for arch, reduced in itertools.product(
-            ("llama3.2-1b", "mamba2-370m", "granite-moe-1b-a400m"),
+            ("llama3.2-1b", "mamba2-370m", "granite-moe-1b-a400m",
+             "zamba2-2.7b"),
             (False, True)):
         t = get_config(arch, reduced=reduced)
         j = jax_get_config(arch, reduced=reduced)

@@ -185,7 +185,7 @@ def test_unported_configs_raise():
     cfg = get_config(ARCH, reduced=True)
     for kw in ({"attn_pattern": "local_global"}, {"kv_cache_dtype": "int8"},
                {"qk_norm": True}, {"post_norms": True},
-               {"family": "hybrid"}):
+               {"family": "audio"}, {"family": "vlm"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.init_params(0, cfg.replace(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
