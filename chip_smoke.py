@@ -923,13 +923,6 @@ class _RecordMoE:
         return False
 
 
-def _shared_applications(cfg) -> int:
-    """How often a hybrid model applies its shared block: once after each
-    full period of ``hybrid_attn_every`` layers."""
-    from repro_torch.models.transformer import layout
-    return layout(cfg)[1]
-
-
 # per model: the context that routes it to plain versions, and the kernel
 # launches a drain of n_req requests over `ticks` decode ticks must show,
 # from the model's config
@@ -947,10 +940,11 @@ MODELS = {
             "flash_decode": cfg.num_layers * ticks, "ssd_scan": 0,
             "moe_ffn": cfg.num_layers * (n_req + ticks)}),
     # 54 mamba layers (ssd_scan in prefill, no kernel in decode) and 9
-    # applications of the shared attention block
+    # applications of the shared attention block, one after each full
+    # period; counted from the config, not from the port's own layout
     "zamba2-2.7b": (_plain_attention_ssd, lambda cfg, n_req, ticks: {
-        "flash_attention": _shared_applications(cfg) * n_req,
-        "flash_decode": _shared_applications(cfg) * ticks,
+        "flash_attention": cfg.num_layers // cfg.hybrid_attn_every * n_req,
+        "flash_decode": cfg.num_layers // cfg.hybrid_attn_every * ticks,
         "ssd_scan": cfg.num_layers * n_req, "moe_ffn": 0}),
 }
 
@@ -1085,10 +1079,12 @@ def _check_fp32(arch, full):
         err_pre = (logits_k - logits_p).abs().max().item()
         err_dec = (dec_k - dec_p).abs().max().item()
         err_cache, big, leaves = 0.0, 0.0, []
-        for group in ("layers", "shared"):
-            assert len(cache_k.get(group, [])) == len(cache_p.get(group, []))
-            for lk, lp in zip(cache_k.get(group, []),
-                              cache_p.get(group, [])):
+        groups = [g for g, lcs in cache_p.items() if isinstance(lcs, list)]
+        assert groups == [g for g, lcs in cache_k.items()
+                          if isinstance(lcs, list)]
+        for group in groups:
+            assert len(cache_k[group]) == len(cache_p[group])
+            for lk, lp in zip(cache_k[group], cache_p[group]):
                 for key in lk:
                     err_cache = max(err_cache,
                                     (lk[key] - lp[key]).abs().max().item())

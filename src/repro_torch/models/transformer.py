@@ -183,18 +183,24 @@ class Transformer(nn.Module):
             self.shared = Block(gen, cfg)
 
 
-def _blocks(params: Transformer, cfg: ModelConfig):
-    """The blocks in the order they run, each with the cache list that
-    holds its cache: every layer (``"layers"``), and for the hybrid family
-    the shared block (``"shared"``) after the last layer of each full
-    period."""
+def _schedule(cfg: ModelConfig):
+    """(kind, cache list) of each block in the order they run: every layer
+    (``"layers"``), and for the hybrid family the shared block
+    (``"shared"``) after the last layer of each full period."""
     pattern, n_full, _ = layout(cfg)
     period = len(pattern)
     hybrid = cfg.family == "hybrid"
-    for i, blk in enumerate(params.layers):
-        yield blk, "layers"
+    for i, kind in enumerate(layer_kinds(cfg)):
+        yield kind, "layers"
         if hybrid and (i + 1) % period == 0 and i < n_full * period:
-            yield params.shared, "shared"
+            yield "attn_global", "shared"
+
+
+def _blocks(params: Transformer, cfg: ModelConfig):
+    """The modules in ``_schedule``'s order, each with its cache list."""
+    layers = iter(params.layers)
+    for _, where in _schedule(cfg):
+        yield (next(layers) if where == "layers" else params.shared), where
 
 
 def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
@@ -233,17 +239,14 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Optional[Union[str, torch.device]] = None) -> Cache:
     dev = resolve_device(device)
-    cache: Cache = {
-        "len": torch.zeros((), dtype=torch.int32, device=dev),
-        "layers": [_BLOCKS[kind].empty_cache(cfg, batch, max_len, dev)
-                   for kind in layer_kinds(cfg)],
-    }
-    if cfg.family == "hybrid":
-        # one zeroed buffer per application: decode writes each in place,
-        # so they must not share storage (as an ``expand`` would)
-        cache["shared"] = [Block.empty_cache(cfg, batch, max_len, dev)
-                           for _ in range(layout(cfg)[1])]
-    return cache
+    # one zeroed buffer per block: decode writes attention caches in place,
+    # so the shared block's applications must not share storage (as an
+    # ``expand`` would)
+    caches = _cache_lists(cfg)
+    for kind, where in _schedule(cfg):
+        caches[where].append(
+            _BLOCKS[kind].empty_cache(cfg, batch, max_len, dev))
+    return {"len": torch.zeros((), dtype=torch.int32, device=dev), **caches}
 
 
 def _seed_attn_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
@@ -260,8 +263,8 @@ def _seed_attn_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
 
 
 def _cache_lists(cfg: ModelConfig) -> Dict[str, list]:
-    """Empty per-block cache lists of a cache dict, keyed as ``_blocks``
-    names them."""
+    """Empty per-block cache lists of a cache dict, keyed as ``_schedule``
+    names them; every list-valued key of a cache is one of these."""
     return {"layers": [], **({"shared": []} if cfg.family == "hybrid"
                              else {})}
 
@@ -319,7 +322,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     x = _embed_inputs(params, cfg, token)
     cache_len = cache["len"]
     old = {where: iter(lcs) for where, lcs in cache.items()
-           if where != "len"}
+           if isinstance(lcs, list)}
     caches = _cache_lists(cfg)
     for p, where in _blocks(params, cfg):
         x, nc = p.decode(cfg, x, next(old[where]), cache_len)

@@ -114,9 +114,10 @@ class ContinuousBatcher:
         whose shape already equals the batch leaf's is left alone, so with
         one slot the prefill cache is not copied in (reference
         behaviour)."""
-        for group in ("layers", "shared"):
-            for lb, lo in zip(self.cache.get(group, []),
-                              one_cache.get(group, [])):
+        for group, lcs in self.cache.items():
+            if not isinstance(lcs, list):
+                continue
+            for lb, lo in zip(lcs, one_cache[group]):
                 for key, batch_leaf in lb.items():
                     one_leaf = lo[key]
                     if one_leaf.shape == batch_leaf.shape:

@@ -406,17 +406,15 @@ def test_init_params_draws_the_jax_distributions():
 
 
 def test_hybrid_still_raises():
-    """The hybrid family builds now (``tests/test_torch_hybrid.py``); the
-    families still to port, ``audio`` and ``vlm``, raise and name their
-    ROADMAP item."""
-    cfg = get_config(ARCH, reduced=True)
-    api.init_params(0, cfg.replace(family="hybrid", hybrid_attn_every=1,
-                                   num_heads=2, num_kv_heads=2, d_ff=64),
-                    device="cpu")
-    for family in ("audio", "vlm"):
+    """The hybrid family builds now (``tests/test_torch_hybrid.py``), but
+    a hybrid config with an attention option its shared block would need
+    and the port lacks still raises, naming its ROADMAP item."""
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    for kw in ({"kv_cache_dtype": "int8"}, {"attn_pattern": "local_global"},
+               {"qk_norm": True}):
         with pytest.raises(NotImplementedError,
-                           match="encoder-decoder/VLM item.*ROADMAP"):
-            api.init_params(0, cfg.replace(family=family), device="cpu")
+                           match="local/global attention item.*ROADMAP"):
+            api.init_params(0, cfg.replace(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("reduced", [True, False])
